@@ -1,0 +1,80 @@
+"""ResNet-18/34 encoder with ABN, NCHW.
+
+Port of ``mgnet_tpu/models/resnet.py`` for inference: BasicStem (7x7/s2
+conv-ABN + 3x3/s2 max pool), BasicBlocks with leaky-ABN conv1,
+identity-ABN conv2 and shortcut, residual add then ReLU; stages res2..res5
+at strides 4/8/16/32. The stem is a plain ``Conv2d(padding=3)``: the JAX
+space-to-depth form (``resnet.py:63-104``) is a TPU layout trick over the
+same variable tree.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from mgnet_tpu_torch.models.abn import ConvABN
+
+__all__ = ["ResNetABN", "BasicBlock", "BasicStem", "RESNET_STAGE_BLOCKS"]
+
+RESNET_STAGE_BLOCKS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3)}
+
+
+class BasicStem(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.conv1 = ConvABN(3, 64, 7, stride=2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.max_pool2d(self.conv1(x), 3, stride=2, padding=1)
+
+
+class BasicBlock(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = ConvABN(in_channels, out_channels, 3, stride=stride)
+        self.conv2 = ConvABN(out_channels, out_channels, 3,
+                             activation="identity")
+        self.shortcut = (
+            ConvABN(in_channels, out_channels, 1, stride=stride,
+                    activation="identity")
+            if in_channels != out_channels else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.conv2(self.conv1(x))
+        shortcut = x if self.shortcut is None else self.shortcut(x)
+        return F.relu(out + shortcut)
+
+
+class ResNetABN(nn.Module):
+    """RGB NCHW -> {"res3", "res4", "res5"} NCHW features (strides 8, 16,
+    32; 128, 256, 512 channels). Blocks are named like the JAX tree:
+    ``res{2..5}_block{i}``."""
+
+    OUT_FEATURES = ("res3", "res4", "res5")
+
+    def __init__(self, depth: int = 18):
+        super().__init__()
+        self.stem = BasicStem()
+        self.block_names = []
+        c_in, c_out = 64, 64
+        for idx, n_blocks in enumerate(RESNET_STAGE_BLOCKS[depth]):
+            stride = 1 if idx == 0 else 2
+            for b in range(n_blocks):
+                name = f"res{idx + 2}_block{b}"
+                self.add_module(name, BasicBlock(
+                    c_in, c_out, stride if b == 0 else 1))
+                self.block_names.append(name)
+                c_in = c_out
+            c_out *= 2
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        y = self.stem(x)
+        feats = {"stem": y}
+        for name in self.block_names:
+            y = getattr(self, name)(y)
+            feats[name.split("_")[0]] = y
+        return {k: v for k, v in feats.items() if k in self.OUT_FEATURES}
