@@ -1,13 +1,25 @@
-"""Geometry: pixel grids, resizes, inverse depth and the pinhole camera."""
+"""Geometry: pixel grids, resizes, the bilinear grid sample, inverse
+depth, poses, the pinhole camera and view synthesis."""
 
 from mgnet_tpu_torch.geometry.camera import Camera
+from mgnet_tpu_torch.geometry.camera_utils import (
+    scale_intrinsics,
+    synthesis_coords,
+    view_synthesis,
+    view_synthesis_planar,
+)
 from mgnet_tpu_torch.geometry.depth import inv2depth
 from mgnet_tpu_torch.geometry.image import (
+    grid_sample,
+    grid_sample_planar,
     image_grid,
     interpolate_bilinear,
     interpolate_bilinear_cf,
     interpolate_nearest,
 )
+from mgnet_tpu_torch.geometry.pose import Pose
 
-__all__ = ["Camera", "inv2depth", "image_grid", "interpolate_bilinear",
-           "interpolate_bilinear_cf", "interpolate_nearest"]
+__all__ = ["Camera", "Pose", "grid_sample", "grid_sample_planar",
+           "image_grid", "interpolate_bilinear", "interpolate_bilinear_cf",
+           "interpolate_nearest", "inv2depth", "scale_intrinsics",
+           "synthesis_coords", "view_synthesis", "view_synthesis_planar"]

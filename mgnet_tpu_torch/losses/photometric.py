@@ -1,0 +1,149 @@
+"""Self-supervised multi-view photometric loss.
+
+Port of ``mgnet_tpu/losses/photometric.py::multi_view_photometric_loss``:
+per context frame, warp it into the current view through the predicted
+depth and pose (``view_synthesis_planar``, the warp kernel on the card);
+photometric residual = channel mean of 0.85 * SSIM + 0.15 * L1
+(``fused_photometric_residual``, the SSIM kernels on the card); with
+automasking, the unwarped context's residual joins the candidates; the
+per-pixel minimum over candidates is averaged over the reprojection mask,
+then over scales; plus the edge-aware smoothness of the mean-normalized
+inverse depth with weight 1/2^i per scale (no extra /2).
+
+Everything runs in float32, on channel-planar [B, C, H, W] tensors inside;
+the arguments keep the JAX package's NHWC layout.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import torch
+
+from mgnet_tpu_torch.geometry import (
+    Camera,
+    Pose,
+    inv2depth,
+    view_synthesis_planar,
+)
+from mgnet_tpu_torch.ops.ssim import fused_photometric_residual
+
+__all__ = ["multi_view_photometric_loss"]
+
+
+def _planar(x: torch.Tensor) -> torch.Tensor:
+    return x.float().permute(0, 3, 1, 2).contiguous()
+
+
+def multi_view_photometric_loss(
+    inv_depths: List[torch.Tensor],
+    poses: torch.Tensor,
+    camera_matrix: torch.Tensor,
+    image: torch.Tensor,
+    context_images: List[torch.Tensor],
+    reprojection_mask: Optional[torch.Tensor] = None,
+    *,
+    ssim_loss_weight: float = 0.85,
+    photometric_loss_weight: float = 1.0,
+    smoothing_loss_weight: float = 0.001,
+    automask_loss: bool = True,
+    photometric_reduce_op: str = "min",
+    padding_mode: str = "zeros",
+) -> Dict[str, torch.Tensor]:
+    """Photometric and smoothness losses.
+
+    Args:
+        inv_depths: [B, H, W, 1] inverse depths, all at full resolution.
+        poses: [B, num_context, 6] pose vectors (t, euler) of the context
+            frames.
+        camera_matrix: [B, 3, 3] intrinsics.
+        image: [B, H, W, 3] current frame in [0, 1].
+        context_images: [B, H, W, 3] context frames matching poses[:, j].
+        reprojection_mask: [B, H, W, 1] or [B, H, W] validity mask.
+    """
+    with torch.autocast(image.device.type, enabled=False):
+        return _loss(inv_depths, poses, camera_matrix, image, context_images,
+                     reprojection_mask, ssim_loss_weight,
+                     photometric_loss_weight, smoothing_loss_weight,
+                     automask_loss, photometric_reduce_op, padding_mode)
+
+
+def _loss(inv_depths, poses, camera_matrix, image, context_images,
+          reprojection_mask, ssim_loss_weight, photometric_loss_weight,
+          smoothing_loss_weight, automask_loss, photometric_reduce_op,
+          padding_mode):
+    n = len(inv_depths)
+    inv_depths = [d.float() for d in inv_depths]
+    camera_matrix = camera_matrix.float()
+    poses = poses.float()
+    image_pl = _planar(image)
+    if reprojection_mask is None:
+        mask = torch.ones_like(image_pl[:, 0])
+    else:
+        mask = reprojection_mask.float()
+        if mask.dim() == 4:
+            mask = mask[..., 0]
+    if automask_loss and photometric_reduce_op != "min":
+        raise ValueError("automasking requires the min photometric "
+                         "reduction")
+
+    def photo(a: torch.Tensor) -> torch.Tensor:
+        """Residual [B, H, W] of planar frame ``a`` against the image."""
+        if ssim_loss_weight > 0.0:
+            return fused_photometric_residual(a, image_pl, ssim_loss_weight)
+        return torch.abs(a - image_pl).mean(dim=1)
+
+    depths = [inv2depth(d) for d in inv_depths]
+    cam = Camera(K=camera_matrix)
+    candidates: List[List[torch.Tensor]] = [[] for _ in range(n)]
+    for j, ref_image in enumerate(context_images):
+        ref_pl = _planar(ref_image)
+        ref_cam = Camera(K=camera_matrix, Tcw=Pose.from_vec(poses[:, j]))
+        unwarped = photo(ref_pl) if automask_loss else None
+        for i in range(n):
+            warped = view_synthesis_planar(ref_pl, depths[i], ref_cam, cam,
+                                           padding_mode=padding_mode)
+            candidates[i].append(photo(warped))
+            if automask_loss:
+                candidates[i].append(unwarped)
+
+    mask_sum = torch.clamp(mask.sum(), min=1.0)
+
+    def reduce_scale(cands: List[torch.Tensor]) -> torch.Tensor:
+        stacked = torch.stack(cands, dim=0)
+        if photometric_reduce_op == "min":
+            m = torch.amin(stacked, dim=0)
+        elif photometric_reduce_op == "mean":
+            m = stacked.mean(dim=0)
+        else:
+            raise ValueError(
+                f"Unknown photometric_reduce_op: {photometric_reduce_op}")
+        return (m * mask).sum() / mask_sum
+
+    photometric_loss = sum(reduce_scale(candidates[i])
+                           for i in range(n)) / n
+
+    inv_norm = [
+        p[..., 0] / torch.clamp(p[..., 0].mean(dim=(1, 2), keepdim=True),
+                                min=1e-6)
+        for p in inv_depths
+    ]
+    img_gx = torch.abs(image_pl[..., :-1] - image_pl[..., 1:])
+    img_gy = torch.abs(image_pl[:, :, :-1, :] - image_pl[:, :, 1:, :])
+    weights_x = torch.exp(-img_gx.mean(dim=1))
+    weights_y = torch.exp(-img_gy.mean(dim=1))
+    mask_x = mask[:, :, :-1]
+    mask_y = mask[:, :-1, :]
+    msum_x = torch.clamp(mask_x.sum(), min=1.0)
+    msum_y = torch.clamp(mask_y.sum(), min=1.0)
+    smoothness_loss = sum(
+        ((torch.abs((inv_norm[i][:, :, :-1] - inv_norm[i][:, :, 1:])
+                    * weights_x) * mask_x).sum() / msum_x
+         + (torch.abs((inv_norm[i][:, :-1, :] - inv_norm[i][:, 1:, :])
+                      * weights_y) * mask_y).sum() / msum_y) / 2 ** i
+        for i in range(n)
+    ) / n
+    return {
+        "loss_photometric": photometric_loss * photometric_loss_weight,
+        "loss_smoothness": smoothness_loss * smoothing_loss_weight,
+    }

@@ -1,11 +1,20 @@
-"""Activated batch normalization in eval mode: conv + BN + activation.
+"""Activated batch normalization: conv + BN + activation.
 
-Port of ``mgnet_tpu/models/abn.py:67-217`` for inference. BN uses the
-running statistics with eps 1e-5 and is evaluated in float32 whatever the
-input dtype, then cast back (as ``BatchNormTorch`` does); the activation is
-leaky_relu(0.01) or identity. Parameter names follow the JAX tree with the
-``BatchNorm_0`` level folded in: ``abn/BatchNorm_0/{scale,bias,mean,var}``
--> ``abn.{weight,bias,running_mean,running_var}`` (utils/weights.py).
+Port of ``mgnet_tpu/models/abn.py:67-217``. BN is evaluated in float32
+whatever the input dtype, then cast back (as ``BatchNormTorch`` does);
+the activation is leaky_relu(0.01) or identity. Parameter names follow
+the JAX tree with the ``BatchNorm_0`` level folded in:
+``abn/BatchNorm_0/{scale,bias,mean,var}`` ->
+``abn.{weight,bias,running_mean,running_var}`` (utils/weights.py).
+
+``module.train()`` normalizes with the batch statistics over (N, H, W),
+in f32: the one-pass ``max(0, E[x^2] - E[x]^2)`` variance, or with
+``fast_variance=False`` (the pooled [B, C, 1, 1] sites of the GCM and the
+ARM attention) the two-pass ``E[(x - E[x])^2]``. It then updates the
+running statistics as ``0.99 * running + 0.01 * batch``, storing the
+unbiased variance (x n / (n - 1)): the JAX package's ``BN_MOMENTUM =
+0.99`` in flax form, torch momentum 0.01. ``module.eval()`` normalizes
+with the running statistics.
 """
 
 from __future__ import annotations
@@ -14,28 +23,52 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["ABN", "ConvABN", "BN_EPS"]
+__all__ = ["ABN", "ConvABN", "BN_EPS", "BN_MOMENTUM"]
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.99  # flax form: running = momentum * running + (1 - m) * batch
 
 
 class ABN(nn.Module):
-    """Eval-mode BatchNorm over the channel axis of NCHW + activation."""
+    """BatchNorm over the channel axis of NCHW + activation."""
 
-    def __init__(self, channels: int, activation: str = "leaky_relu"):
+    def __init__(self, channels: int, activation: str = "leaky_relu",
+                 fast_variance: bool = True):
         super().__init__()
         if activation not in ("leaky_relu", "identity"):
             raise ValueError(f"Unsupported ABN activation: {activation}")
         self.activation = activation
+        self.fast_variance = fast_variance
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
+    def _batch_stats(self, xf: torch.Tensor):
+        dims = (0, 2, 3)
+        mean = xf.mean(dim=dims)
+        if self.fast_variance:
+            var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean,
+                              min=0.0)
+        else:
+            var = torch.square(xf - mean[:, None, None]).mean(dim=dims)
+        with torch.no_grad():
+            n = xf.numel() // xf.shape[1]
+            correction = n / (n - 1) if n > 1 else 1.0
+            m = BN_MOMENTUM
+            self.running_mean.mul_(m).add_((1 - m) * mean)
+            self.running_var.mul_(m).add_((1 - m) * var * correction)
+        return mean, var
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + BN_EPS) * self.weight
-        y = (x.float() - self.running_mean[:, None, None]) \
-            * mul[:, None, None] + self.bias[:, None, None]
+        xf = x.float()
+        if self.training:
+            mean, var = self._batch_stats(xf)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] \
+            + self.bias[:, None, None]
         y = y.to(x.dtype)
         if self.activation == "leaky_relu":
             y = F.leaky_relu(y, negative_slope=0.01)
@@ -47,12 +80,13 @@ class ConvABN(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1,
-                 activation: str = "leaky_relu"):
+                 activation: str = "leaky_relu",
+                 fast_variance: bool = True):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, out_channels, kernel_size,
                               stride=stride, padding=kernel_size // 2,
                               bias=False)
-        self.abn = ABN(out_channels, activation)
+        self.abn = ABN(out_channels, activation, fast_variance)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.abn(self.conv(x))

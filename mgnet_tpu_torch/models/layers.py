@@ -1,8 +1,10 @@
 """MGNet decoder building blocks: GCM, ARM, FFM, decoder and head, NCHW.
 
-Port of ``mgnet_tpu/models/layers.py:33-201`` for inference (PoseCNN comes
-with the training slice). Module and attribute names follow the JAX
-variable tree so that weights carry across by name (utils/weights.py).
+Port of ``mgnet_tpu/models/layers.py``, with the pose network ``PoseCNN``.
+Module and attribute names follow the JAX variable tree so that weights
+carry across by name (utils/weights.py). The pooled [B, C, 1, 1] BN sites
+(the GCM and the ARM attention) use the two-pass batch variance in
+training, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from torch import nn
 
 from mgnet_tpu_torch.geometry.image import interpolate_nearest
 from mgnet_tpu_torch.models.abn import ConvABN
+from mgnet_tpu_torch.models.resnet import ResNetABN
 
 __all__ = [
     "GlobalContextModule",
@@ -21,6 +24,7 @@ __all__ = [
     "FeatureFusionModule",
     "MGNetDecoder",
     "MGNetHead",
+    "PoseCNN",
 ]
 
 
@@ -33,7 +37,8 @@ class GlobalContextModule(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int = 128):
         super().__init__()
-        self.conv = ConvABN(in_channels, out_channels, 1)
+        self.conv = ConvABN(in_channels, out_channels, 1,
+                            fast_variance=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.conv(_global_avg_pool(x))
@@ -48,7 +53,8 @@ class AttentionRefinementModule(nn.Module):
         super().__init__()
         self.conv = ConvABN(in_channels, out_channels, 3)
         self.attention_conv = ConvABN(out_channels, out_channels, 1,
-                                      activation="identity")
+                                      activation="identity",
+                                      fast_variance=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         fm = self.conv(x)
@@ -123,3 +129,30 @@ class MGNetHead(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.predictor(self.head(x))
+
+
+class PoseCNN(nn.Module):
+    """Pose regression: a ResNet encoder over the channel concat of (current,
+    previous, next) frames, convs 1-4 with biases and ReLU between them, a
+    spatial mean, x 0.01 -> [B, num_context, 6] (tx, ty, tz, rx, ry, rz),
+    float32."""
+
+    def __init__(self, depth: int = 18, num_context_images: int = 2):
+        super().__init__()
+        self.num_context_images = num_context_images
+        self.encoder = ResNetABN(depth=depth,
+                                 in_channels=3 * (num_context_images + 1),
+                                 out_features=("res5",))
+        self.conv1 = nn.Conv2d(512, 256, 1)
+        self.conv2 = nn.Conv2d(256, 256, 3, padding=1)
+        self.conv3 = nn.Conv2d(256, 256, 3, padding=1)
+        self.conv4 = nn.Conv2d(256, 6 * num_context_images, 1)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        y = self.encoder(images)["res5"]
+        y = torch.relu(self.conv1(y))
+        y = torch.relu(self.conv2(y))
+        y = torch.relu(self.conv3(y))
+        y = self.conv4(y).mean(dim=(2, 3))
+        y = 0.01 * y.reshape(y.shape[0], self.num_context_images, 6)
+        return y.float()

@@ -1,15 +1,29 @@
-"""MGNet for inference: shared ResNet encoder, GCM and three heads, NCHW.
+"""MGNet: shared ResNet encoder, GCM, three heads and the pose network, NCHW.
 
-Port of ``mgnet_tpu/models/mgnet.py:35-292`` for the eval path with
-``upsample=False``: the heads return stride-8 maps and the fused frame
-(inference/fused.py) upsamples them. The pose network and the multi-scale
-depth heads come with the training slice.
+Port of ``mgnet_tpu/models/mgnet.py``.
 
-``MGNet.forward`` takes a normalized NHWC image batch, runs NCHW inside
-and returns NHWC head outputs, as the JAX model does. With
-``dtype=torch.bfloat16`` the conv stack runs under
+``MGNet.forward`` is the eval path with ``upsample=False``: it takes a
+normalized NHWC image batch and returns the stride-8 NHWC head outputs
+(the fused frame, inference/fused.py, upsamples them).
+
+``MGNet.forward_train(image, image_prev, image_next)`` is the training
+forward (``mgnet_tpu/models/mgnet.py:118-273``): the heads upsampled to
+full resolution with the align-corners bilinear resize (offsets then
+x common_stride), the depth head over three scales (``head0`` on the
+stride-8 features, ``head1``/``head2`` on the decoder's stride-16/32 maps)
+when ``msc_depth_loss``, and the pose network on the 9-channel channel
+concat of the three normalized frames. Call it with the module in train
+mode for batch-statistics BN, as the JAX training step does.
+
+The pose network and the multi-scale depth heads exist only in a model
+built ``for_training``, as their variables exist in the JAX package only
+when it is initialised through ``forward_train``.
+
+With ``dtype=torch.bfloat16`` the conv stack runs under
 ``torch.autocast(<device>, torch.bfloat16)`` with float32 parameters, the
-counterpart of the JAX model's ``dtype=bfloat16``.
+counterpart of the JAX model's ``dtype=bfloat16``; each resize computes in
+float32 and casts back to its input's dtype, as the JAX package's
+``interpolate_bilinear`` does.
 """
 
 from __future__ import annotations
@@ -21,11 +35,13 @@ import torch
 from torch import nn
 
 from mgnet_tpu_torch.geometry.depth import inv2depth
+from mgnet_tpu_torch.geometry.image import interpolate_bilinear_cf
 from mgnet_tpu_torch.models.abn import ABN
 from mgnet_tpu_torch.models.layers import (
     GlobalContextModule,
     MGNetDecoder,
     MGNetHead,
+    PoseCNN,
 )
 from mgnet_tpu_torch.models.resnet import ResNetABN
 
@@ -37,62 +53,103 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
+def _upsample(x: torch.Tensor, stride: int) -> torch.Tensor:
+    """Align-corners bilinear resize by ``stride``, in f32, cast back."""
+    size = (x.shape[2] * stride, x.shape[3] * stride)
+    return interpolate_bilinear_cf(x, size).to(x.dtype)
+
+
 class SemSegHead(nn.Module):
     def __init__(self, in_channels, num_classes, arm_channels,
-                 refine_channels, ffm_channels, head_channels):
+                 refine_channels, ffm_channels, head_channels,
+                 common_stride=8):
         super().__init__()
+        self.common_stride = common_stride
         self.decoder = MGNetDecoder(in_channels, arm_channels,
                                     refine_channels, ffm_channels)
         self.head = MGNetHead(ffm_channels, head_channels, num_classes)
 
-    def forward(self, features):
+    def forward(self, features, upsample: bool = False):
         y, _ = self.decoder(features)
-        return self.head(y)
+        y = self.head(y)
+        return _upsample(y, self.common_stride) if upsample else y
 
 
 class InsEmbedHead(nn.Module):
-    """Center heatmap (sigmoid) and (dy, dx) offsets, at stride 8."""
+    """Center heatmap (sigmoid) and (dy, dx) offsets; at stride 8, or
+    upsampled with the offsets in output pixels."""
 
     def __init__(self, in_channels, arm_channels, refine_channels,
-                 ffm_channels, head_channels):
+                 ffm_channels, head_channels, common_stride=8):
         super().__init__()
+        self.common_stride = common_stride
         self.decoder = MGNetDecoder(in_channels, arm_channels,
                                     refine_channels, ffm_channels)
         self.center_head = MGNetHead(ffm_channels, head_channels, 1)
         self.offset_head = MGNetHead(ffm_channels, head_channels, 2)
 
-    def forward(self, features):
+    def forward(self, features, upsample: bool = False):
         y, _ = self.decoder(features)
-        return torch.sigmoid(self.center_head(y)), self.offset_head(y)
+        center = torch.sigmoid(self.center_head(y))
+        offset = self.offset_head(y)
+        if upsample:
+            center = _upsample(center, self.common_stride)
+            offset = _upsample(offset, self.common_stride) \
+                * self.common_stride
+        return center, offset
 
 
 class DepthHead(nn.Module):
-    """Eval path: one inverse-depth head on the stride-8 features,
-    sigmoid / 0.5 -> inverse depth in (0, 2), as float32."""
+    """Inverse-depth heads, sigmoid / 0.5 -> inverse depth in (0, 2), as
+    float32: ``head0`` on the stride-8 features; with ``msc_heads``,
+    ``head1`` and ``head2`` on the decoder's stride-16 and stride-32 maps
+    (``msc[1]``, ``msc[0]``) in training."""
 
     def __init__(self, in_channels, arm_channels, refine_channels,
-                 ffm_channels, head_channels):
+                 ffm_channels, head_channels, common_stride=8,
+                 msc_heads: bool = False):
         super().__init__()
+        self.common_stride = common_stride
+        self.msc_heads = msc_heads
         self.decoder = MGNetDecoder(in_channels, arm_channels,
                                     refine_channels, ffm_channels)
         self.head0 = MGNetHead(ffm_channels, head_channels, 1)
+        if msc_heads:
+            self.head1 = MGNetHead(arm_channels[1], head_channels, 1)
+            self.head2 = MGNetHead(arm_channels[0], head_channels, 1)
 
     def forward(self, features):
+        """Eval: [B, 1, H/8, W/8] inverse depth."""
         y, _ = self.decoder(features)
         return (torch.sigmoid(self.head0(y)) / 0.5).float()
 
+    def forward_train(self, features):
+        """Training: the list of full-resolution inverse depths, finest
+        first."""
+        y, msc = self.decoder(features)
+        inputs = [y]
+        if self.msc_heads:
+            inputs += [msc[1], msc[0]]
+        outs = []
+        for i, f in enumerate(inputs):
+            d = torch.sigmoid(getattr(self, f"head{i}")(f)) / 0.5
+            size = (y.shape[2] * self.common_stride,
+                    y.shape[3] * self.common_stride)
+            d = interpolate_bilinear_cf(d, size).to(d.dtype)
+            outs.append(d.float())
+        return outs
+
 
 class MGNet(nn.Module):
-    """Joint panoptic + depth network (eval). Both task branches always
-    exist: the task toggles of the JAX config (WITH_PANOPTIC/WITH_DEPTH)
-    come with the YAML configs of a later slice."""
+    """Joint panoptic + self-supervised depth network."""
 
     def __init__(self, num_classes: int = 20, depth: int = 18,
                  gcm_channels: int = 128, common_stride: int = 8,
                  head_channels: int = 256, ffm_channels: int = 256,
                  arm_channels: Sequence[int] = (128, 128),
                  refine_channels: Sequence[int] = (128, 128),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 for_training: bool = False, msc_depth_loss: bool = True):
         super().__init__()
         self.common_stride = common_stride
         self.dtype = dtype
@@ -102,32 +159,70 @@ class MGNet(nn.Module):
                                                   gcm_channels)
         common = dict(in_channels=in_ch, arm_channels=tuple(arm_channels),
                       refine_channels=tuple(refine_channels),
-                      ffm_channels=ffm_channels, head_channels=head_channels)
+                      ffm_channels=ffm_channels, head_channels=head_channels,
+                      common_stride=common_stride)
         self.sem_seg_head = SemSegHead(num_classes=num_classes, **common)
         self.ins_embed_head = InsEmbedHead(**common)
-        self.depth_head = DepthHead(**common)
+        self.depth_head = DepthHead(
+            msc_heads=for_training and msc_depth_loss, **common)
+        if for_training:
+            self.pose_net = PoseCNN(depth=depth)
+
+    def _autocast(self, device_type: str):
+        return torch.autocast(device_type, dtype=torch.bfloat16,
+                              enabled=self.dtype == torch.bfloat16)
+
+    def _features(self, images_nchw: torch.Tensor):
+        feats = self.backbone(images_nchw)
+        feats["global_context"] = self.global_context(feats["res5"])
+        return feats
 
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Normalized NHWC images -> stride-8 NHWC head outputs:
         'sem_seg' logits, 'center', 'offset', 'inv_depth' (f32) and
         'depth'."""
-        with torch.autocast(images.device.type, dtype=torch.bfloat16,
-                            enabled=self.dtype == torch.bfloat16):
-            feats = self.backbone(images.permute(0, 3, 1, 2))
-            feats["global_context"] = self.global_context(feats["res5"])
+        with self._autocast(images.device.type):
+            feats = self._features(images.permute(0, 3, 1, 2))
             center, offset = self.ins_embed_head(feats)
             inv = _nhwc(self.depth_head(feats))
             return {"sem_seg": _nhwc(self.sem_seg_head(feats)),
                     "center": _nhwc(center), "offset": _nhwc(offset),
                     "inv_depth": inv, "depth": inv2depth(inv)}
 
+    def forward_train(self, image: torch.Tensor, image_prev: torch.Tensor,
+                      image_next: torch.Tensor) -> Dict[str, object]:
+        """Normalized NHWC frames -> full-resolution NHWC 'sem_seg',
+        'center', 'offset', the list 'inv_depths' ([B, H, W, 1] f32,
+        finest first) and 'poses' ([B, 2, 6] f32)."""
+        if not hasattr(self, "pose_net"):
+            raise RuntimeError("forward_train needs a model built "
+                               "for_training (pose net, depth heads)")
+        with self._autocast(image.device.type):
+            x = image.permute(0, 3, 1, 2)
+            feats = self._features(x)
+            out: Dict[str, object] = {
+                "sem_seg": _nhwc(self.sem_seg_head(feats, upsample=True))}
+            center, offset = self.ins_embed_head(feats, upsample=True)
+            out["center"], out["offset"] = _nhwc(center), _nhwc(offset)
+            out["inv_depths"] = [_nhwc(d) for d in
+                                 self.depth_head.forward_train(feats)]
+            cat = torch.cat([x, image_prev.permute(0, 3, 1, 2),
+                             image_next.permute(0, 3, 1, 2)], dim=1)
+            out["poses"] = self.pose_net(cat)
+        return out
 
-def build_model(cfg, device="cuda") -> MGNet:
-    """MGNet from a config (mgnet_tpu_torch.config), in eval mode on
-    ``device``. Weights are the constructor's; load real ones with
-    utils.weights.load_jax_params or draw them with init_random_."""
+
+def build_model(cfg, device="cuda", for_training: bool = False) -> MGNet:
+    """MGNet from a config (mgnet_tpu_torch.config) on ``device``: in eval
+    mode, or with the pose net and multi-scale depth heads in train mode
+    when ``for_training``. Weights are the constructor's; load real ones
+    with utils.weights.load_jax_params or draw them with init_random_."""
     h = cfg.MODEL.SEM_SEG_HEAD
     dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    if for_training and not (cfg.WITH_PANOPTIC and cfg.WITH_DEPTH):
+        raise NotImplementedError(
+            "the port trains the joint model only (WITH_PANOPTIC and "
+            "WITH_DEPTH); single-task training is a later slice (ROADMAP)")
     model = MGNet(
         num_classes=h.NUM_CLASSES,
         depth=cfg.MODEL.RESNETS.DEPTH,
@@ -138,22 +233,27 @@ def build_model(cfg, device="cuda") -> MGNet:
         arm_channels=tuple(h.ARM_CHANNELS),
         refine_channels=tuple(h.REFINE_CHANNELS),
         dtype=dtypes[cfg.MODEL.COMPUTE_DTYPE],
+        for_training=for_training,
+        msc_depth_loss=cfg.MODEL.DEPTH_HEAD.MSC_LOSS,
     )
-    return model.to(device).eval()
+    model = model.to(device)
+    return model.train() if for_training else model.eval()
 
 
 @torch.no_grad()
 def init_random_(module: nn.Module, generator: torch.Generator) -> None:
     """Draw conv weights from N(0, 1/fan_in) (the JAX package's
-    ``mgnet_xavier_init``) with ``generator`` and reset ABN to its identity
-    (scale 1, bias 0, mean 0, var 1). ``generator`` must live on the
-    parameters' device."""
+    ``mgnet_xavier_init``) with ``generator``, zero conv biases, and reset
+    ABN to its identity (scale 1, bias 0, mean 0, var 1). ``generator``
+    must live on the parameters' device."""
     for m in module.modules():
         if isinstance(m, nn.Conv2d):
             fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
             w = torch.randn(m.weight.shape, generator=generator,
                             device=m.weight.device)
             m.weight.copy_(w / math.sqrt(fan_in))
+            if m.bias is not None:
+                m.bias.zero_()
         elif isinstance(m, ABN):
             m.weight.fill_(1.0)
             m.bias.zero_()

@@ -1,6 +1,6 @@
 """ResNet-18/34 encoder with ABN, NCHW.
 
-Port of ``mgnet_tpu/models/resnet.py`` for inference: BasicStem (7x7/s2
+Port of ``mgnet_tpu/models/resnet.py``: BasicStem (7x7/s2
 conv-ABN + 3x3/s2 max pool), BasicBlocks with leaky-ABN conv1,
 identity-ABN conv2 and shortcut, residual add then ReLU; stages res2..res5
 at strides 4/8/16/32. The stem is a plain ``Conv2d(padding=3)``: the JAX
@@ -24,9 +24,9 @@ RESNET_STAGE_BLOCKS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3)}
 
 
 class BasicStem(nn.Module):
-    def __init__(self):
+    def __init__(self, in_channels: int = 3):
         super().__init__()
-        self.conv1 = ConvABN(3, 64, 7, stride=2)
+        self.conv1 = ConvABN(in_channels, 64, 7, stride=2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.max_pool2d(self.conv1(x), 3, stride=2, padding=1)
@@ -50,15 +50,16 @@ class BasicBlock(nn.Module):
 
 
 class ResNetABN(nn.Module):
-    """RGB NCHW -> {"res3", "res4", "res5"} NCHW features (strides 8, 16,
-    32; 128, 256, 512 channels). Blocks are named like the JAX tree:
-    ``res{2..5}_block{i}``."""
+    """NCHW image (3 channels, or 9 for the pose encoder's 3-frame concat)
+    -> the ``out_features`` of {"res2": stride 4, 64 channels, "res3": 8,
+    128, "res4": 16, 256, "res5": 32, 512}. Blocks are named like the JAX
+    tree: ``res{2..5}_block{i}``."""
 
-    OUT_FEATURES = ("res3", "res4", "res5")
-
-    def __init__(self, depth: int = 18):
+    def __init__(self, depth: int = 18, in_channels: int = 3,
+                 out_features=("res3", "res4", "res5")):
         super().__init__()
-        self.stem = BasicStem()
+        self.out_features = tuple(out_features)
+        self.stem = BasicStem(in_channels)
         self.block_names = []
         c_in, c_out = 64, 64
         for idx, n_blocks in enumerate(RESNET_STAGE_BLOCKS[depth]):
@@ -77,4 +78,4 @@ class ResNetABN(nn.Module):
         for name in self.block_names:
             y = getattr(self, name)(y)
             feats[name.split("_")[0]] = y
-        return {k: v for k, v in feats.items() if k in self.OUT_FEATURES}
+        return {k: v for k, v in feats.items() if k in self.out_features}

@@ -1,10 +1,16 @@
 """Build and load the package's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ONE ``nvcc`` call into a shared
-library with a plain C interface, for ``sm_90a`` (Hopper), and loaded with
-``ctypes``. The library lands in ``mgnet_tpu_torch/_build/`` (listed in
-``.gitignore``) under a name that carries a hash of the sources and flags,
-so an edited source is rebuilt and an unchanged one is reused.
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc -c`` process, all
+started together, and one more ``nvcc`` call links the objects into a
+shared library with a plain C interface, for ``sm_90a`` (Hopper), loaded
+with ``ctypes``. The library lands in ``mgnet_tpu_torch/_build/`` (listed
+in ``.gitignore``) under a name that carries a hash of the sources and
+flags, so an edited source is rebuilt and an unchanged one is reused.
+
+``-fmad=false`` keeps nvcc from contracting a multiply and an add into
+one FMA: the kernels evaluate their arithmetic in the order of their plain
+PyTorch versions, one rounding per operation, and are held to them
+bit for bit.
 
 Nothing here runs at import time: the first kernel launch builds.
 """
@@ -27,7 +33,7 @@ CSRC_DIR = _PKG / "ops" / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
 )
 
 
@@ -48,6 +54,21 @@ def _sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands as parallel processes; raise on the first failure."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed (rc={proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> tuple[Path, float]:
     """Compile all kernel sources if needed.
 
@@ -59,21 +80,26 @@ def build() -> tuple[Path, float]:
     for src in sources:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    lib = BUILD_DIR / f"libmgnet_kernels_{digest.hexdigest()[:16]}.so"
+    tag = digest.hexdigest()[:16]
+    lib = BUILD_DIR / f"libmgnet_kernels_{tag}.so"
     if lib.is_file():
         return lib, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f"{src.stem}_{tag}.{os.getpid()}.o"
+            for src in sources]
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (rc={res.returncode}):\n{' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}")
+    try:
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+              for src, obj in zip(sources, objs)])
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+               *map(str, objs)]])
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, lib)
-    return lib, seconds
+    return lib, time.perf_counter() - t0
 
 
 @functools.cache
@@ -83,7 +109,18 @@ def load_library() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     vp, ll = ctypes.c_void_p, ctypes.c_longlong
-    lib.mgnet_center_argmin.argtypes = [
-        vp, vp, vp, vp, vp, vp, ll, ll, ctypes.c_int, vp]
-    lib.mgnet_center_argmin.restype = ctypes.c_int
+    i32, f32 = ctypes.c_int, ctypes.c_float
+    signatures = {
+        "mgnet_center_argmin": [vp, vp, vp, vp, vp, vp, ll, ll, i32, vp],
+        "mgnet_warp_bilinear": [vp, vp, vp, vp, vp, ll, i32, i32, i32, ll,
+                                vp],
+        "mgnet_ssim_residual_fwd": [vp, vp, vp, ll, i32, i32, i32,
+                                    *[f32] * 6, vp],
+        "mgnet_ssim_residual_bwd": [vp, vp, vp, vp, vp, ll, i32, i32, i32,
+                                    *[f32] * 6, vp],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib

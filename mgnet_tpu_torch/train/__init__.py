@@ -1,5 +1,18 @@
-"""Training-side helpers the inference slice needs."""
+"""The training step and its state."""
 
-from mgnet_tpu_torch.train.step import normalize_images
+from mgnet_tpu_torch.train.state import (
+    TrainParams,
+    TrainState,
+    create_train_state,
+)
+from mgnet_tpu_torch.train.step import (
+    apply_uncertainty,
+    compute_losses,
+    make_train_step,
+    normalize_images,
+    unit_image,
+)
 
-__all__ = ["normalize_images"]
+__all__ = ["TrainParams", "TrainState", "apply_uncertainty",
+           "compute_losses", "create_train_state", "make_train_step",
+           "normalize_images", "unit_image"]

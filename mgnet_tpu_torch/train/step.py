@@ -1,11 +1,32 @@
-"""Input normalization (port of ``normalize_images``,
-``mgnet_tpu/train/step.py:38-46``; the training step comes later)."""
+"""The training step: forward, losses, uncertainty weighting, backward,
+clip and Adam.
+
+Port of ``mgnet_tpu/train/step.py``: ``normalize_images``, ``unit_image``,
+``compute_losses`` (the same keys in the same insertion order, which
+indexes ``log_vars``), ``apply_uncertainty`` and ``make_train_step`` for
+``SOLVER.GRAD_ACCUM_STEPS == 1``. The forward runs under bf16 autocast
+when ``MODEL.COMPUTE_DTYPE == "bfloat16"`` (the model applies it); the
+losses run in float32. The BN running statistics update during the
+forward, as the JAX step's mutable ``batch_stats`` do.
+"""
 
 from __future__ import annotations
 
+from typing import Callable, Dict, Tuple
+
 import torch
 
-__all__ = ["normalize_images"]
+from mgnet_tpu_torch.losses import (
+    center_loss,
+    cross_entropy_loss,
+    deeplab_ce_loss,
+    multi_view_photometric_loss,
+    offset_loss,
+    ohem_ce_loss,
+)
+
+__all__ = ["normalize_images", "unit_image", "compute_losses",
+           "apply_uncertainty", "make_train_step"]
 
 
 def normalize_images(images: torch.Tensor, pixel_mean,
@@ -18,3 +39,114 @@ def normalize_images(images: torch.Tensor, pixel_mean,
     std = torch.as_tensor(pixel_std, dtype=torch.float32,
                           device=x.device) / 255.0
     return (x - mean) / std
+
+
+def unit_image(images: torch.Tensor) -> torch.Tensor:
+    """[0, 1]-range float view of an image batch: uint8 is cast and
+    divided by 255, floats pass through."""
+    if images.dtype == torch.uint8:
+        return images.float() / 255.0
+    return images
+
+
+def compute_losses(cfg, outputs: Dict, batch: Dict) -> Dict[str, torch.Tensor]:
+    """The unweighted per-task losses, in the JAX package's key order:
+    loss_sem_seg, loss_center, loss_offset, loss_photometric,
+    loss_smoothness."""
+    losses: Dict[str, torch.Tensor] = {}
+    if cfg.WITH_PANOPTIC:
+        h = cfg.MODEL.SEM_SEG_HEAD
+        args = (outputs["sem_seg"], batch["sem_seg"],
+                batch["sem_seg_weights"])
+        if h.LOSS_TYPE == "ohem":
+            sem = ohem_ce_loss(*args, ignore_label=h.IGNORE_VALUE,
+                               ohem_threshold=h.OHEM_THRESHOLD,
+                               n_min=h.OHEM_N_MIN)
+        elif h.LOSS_TYPE == "hard_pixel_mining":
+            sem = deeplab_ce_loss(*args, ignore_label=h.IGNORE_VALUE,
+                                  top_k_percent=h.LOSS_TOP_K)
+        elif h.LOSS_TYPE == "cross_entropy":
+            sem = cross_entropy_loss(*args, ignore_label=h.IGNORE_VALUE)
+        else:
+            raise ValueError(f"Unexpected loss type: {h.LOSS_TYPE}")
+        losses["loss_sem_seg"] = sem * h.LOSS_WEIGHT
+        ih = cfg.MODEL.INS_EMBED_HEAD
+        losses["loss_center"] = center_loss(
+            outputs["center"], batch["center"],
+            batch["center_weights"]) * ih.CENTER_LOSS_WEIGHT
+        losses["loss_offset"] = offset_loss(
+            outputs["offset"], batch["offset"],
+            batch["offset_weights"]) * ih.OFFSET_LOSS_WEIGHT
+    if cfg.WITH_DEPTH:
+        dh = cfg.MODEL.DEPTH_HEAD
+        losses.update(multi_view_photometric_loss(
+            outputs["inv_depths"], outputs["poses"], batch["camera_matrix"],
+            unit_image(batch["image_orig"]),
+            [unit_image(batch["image_prev_orig"]),
+             unit_image(batch["image_next_orig"])],
+            batch.get("reprojection_mask"),
+            ssim_loss_weight=dh.SSIM_LOSS_WEIGHT,
+            photometric_loss_weight=dh.PHOTOMETRIC_LOSS_WEIGHT,
+            smoothing_loss_weight=dh.SMOOTHING_LOSS_WEIGHT,
+            automask_loss=dh.AUTOMASK_LOSS,
+            photometric_reduce_op=dh.PHOTOMETRIC_REDUCE_OP,
+            padding_mode=dh.PADDING_MODE,
+        ))
+    return losses
+
+
+def apply_uncertainty(losses: Dict[str, torch.Tensor],
+                      log_vars: torch.Tensor) -> Tuple[Dict, Dict]:
+    """Homoscedastic task-uncertainty weighting: loss_i <- tau exp(-s_i)
+    loss_i + 0.5 s_i, tau = 1 for loss_sem_seg and 0.5 else; the metrics
+    carry the raw losses and exp(s_i)."""
+    weighted: Dict[str, torch.Tensor] = {}
+    metrics: Dict[str, torch.Tensor] = {}
+    for idx, (key, value) in enumerate(losses.items()):
+        metrics[key + "_raw"] = value
+        tau = 1.0 if key == "loss_sem_seg" else 0.5
+        s = log_vars[idx]
+        weighted[key] = tau * torch.exp(-s) * value + 0.5 * s
+        metrics[key + "_uncertainty"] = torch.exp(s)
+    return weighted, metrics
+
+
+def make_train_step(cfg) -> Callable:
+    """The train step: (state, batch) -> (state, metrics). ``state`` is a
+    ``train.state.TrainState``, updated in place; ``batch`` holds the
+    synthetic_train_batch / mapper keys as tensors on the state's device.
+    The metrics are detached tensors on that device (reading them
+    synchronises)."""
+    if int(cfg.SOLVER.GRAD_ACCUM_STEPS) > 1:
+        raise NotImplementedError(
+            "SOLVER.GRAD_ACCUM_STEPS > 1: micro-batch gradient accumulation "
+            "is a later slice of the port (ROADMAP.md, Queue 1)")
+    pixel_mean = tuple(cfg.MODEL.PIXEL_MEAN)
+    pixel_std = tuple(cfg.MODEL.PIXEL_STD)
+    with_uncertainty = cfg.WITH_UNCERTAINTY
+
+    def loss_fn(params, batch):
+        def norm(key):
+            return normalize_images(batch[key], pixel_mean, pixel_std)
+
+        outputs = params.model.forward_train(
+            norm("image"), norm("image_prev"), norm("image_next"))
+        losses = compute_losses(cfg, outputs, batch)
+        metrics: Dict[str, torch.Tensor] = {}
+        if with_uncertainty:
+            losses, metrics = apply_uncertainty(losses, params.log_vars)
+        total = sum(losses.values())
+        metrics.update(losses)
+        metrics["loss_total"] = total
+        return total, metrics
+
+    def train_step(state, batch):
+        state.params.train()
+        state.optimizer.zero_grad()
+        total, metrics = loss_fn(state.params, batch)
+        total.backward()
+        metrics["grad_norm"] = state.optimizer.step()
+        state.step += 1
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    return train_step

@@ -1,5 +1,5 @@
-"""Carry weights from the JAX package's flat 'path/leaf' arrays into the
-port's modules.
+"""Carry weights between the JAX package's flat 'path/leaf' arrays and the
+port's modules, both ways.
 
 The JAX package flattens its params and batch_stats trees to keys such as
 ``backbone/res3_block0/conv1/conv/kernel`` (``mgnet_tpu/utils/weights.py``
@@ -9,7 +9,13 @@ The port names its modules after that tree, so a key maps by rule:
 * ``/`` -> ``.``; the ``BatchNorm_0`` level is folded into ``ABN``;
 * ``kernel`` [kh, kw, in, out] (HWIO) -> ``weight`` [out, in, kh, kw] (OIHW);
 * ``scale``, ``bias``, ``mean``, ``var`` -> ``weight``, ``bias``,
-  ``running_mean``, ``running_var``.
+  ``running_mean``, ``running_var``; a conv's ``bias`` stays ``bias``;
+* the train state's ``log_vars`` [5] (the uncertainty weights, beside
+  ``model/...``) is ``log_vars`` of ``train.state.TrainParams``.
+
+``jax_key`` and ``to_jax_arrays`` go the other way, so that tests can hold
+the port's parameters and gradients against the JAX package's, leaf by
+leaf.
 """
 
 from __future__ import annotations
@@ -20,10 +26,13 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["load_jax_params", "torch_key"]
+__all__ = ["jax_key", "load_jax_params", "to_jax_arrays", "torch_key"]
 
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
-         "mean": "running_mean", "var": "running_var"}
+         "mean": "running_mean", "var": "running_var",
+         "log_vars": "log_vars"}
+_ABN_LEAF = {"weight": "scale", "bias": "bias", "running_mean": "mean",
+             "running_var": "var"}
 
 
 def torch_key(jax_key: str) -> str:
@@ -32,6 +41,33 @@ def torch_key(jax_key: str) -> str:
     if leaf not in _LEAF:
         raise KeyError(f"{jax_key}: unknown leaf '{leaf}'")
     return ".".join(parts[:-1] + [_LEAF[leaf]])
+
+
+def jax_key(torch_name: str) -> str:
+    """The flat JAX key of a port state_dict / named_parameters key."""
+    parts = torch_name.split(".")
+    leaf = parts[-1]
+    if len(parts) > 1 and parts[-2] == "abn":
+        if leaf not in _ABN_LEAF:
+            raise KeyError(f"{torch_name}: unknown ABN leaf '{leaf}'")
+        return "/".join(parts[:-1] + ["BatchNorm_0", _ABN_LEAF[leaf]])
+    if leaf not in ("weight", "bias", "log_vars"):
+        raise KeyError(f"{torch_name}: unknown leaf '{leaf}'")
+    return "/".join(parts[:-1] + ["kernel" if leaf == "weight" else leaf])
+
+
+def to_jax_arrays(named: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Port tensors by name (a state_dict, or parameter gradients by
+    parameter name) -> flat JAX keys and layouts (conv weights OIHW ->
+    HWIO), as float32 numpy arrays."""
+    out = {}
+    for name, t in named.items():
+        a = t.detach().float().cpu().numpy()
+        key = jax_key(name)
+        if key.endswith("/kernel"):
+            a = a.transpose(2, 3, 1, 0)
+        out[key] = np.ascontiguousarray(a)
+    return out
 
 
 def load_jax_params(flat: Mapping[str, np.ndarray],

@@ -17,6 +17,19 @@ from mgnet_tpu_torch.ops.center_argmin import (
     center_argmin_reference,
     center_inputs,
 )
+from mgnet_tpu_torch.ops.ssim import (
+    fused_photometric_residual,
+    ssim_residual_bwd,
+    ssim_residual_bwd_reference,
+    ssim_residual_fwd,
+    ssim_residual_reference,
+)
+from mgnet_tpu_torch.ops.warp import warp_bilinear, warp_bilinear_reference
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
 
 
 def _center_case(b, h, w, k, seed=0):
@@ -40,8 +53,7 @@ def _center_case(b, h, w, k, seed=0):
 @pytest.mark.parametrize("b,h,w,k", [(1, 1024, 2048, 128), (3, 37, 53, 5),
                                      (2, 8, 12, 1)])
 def test_center_argmin_kernel_matches_plain_version(b, h, w, k):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    _need_card()
     args = _center_case(b, h, w, k)
     before = center_argmin.launches
     got = center_argmin(*args)
@@ -49,3 +61,91 @@ def test_center_argmin_kernel_matches_plain_version(b, h, w, k):
     assert center_argmin.launches == before + 1
     assert got.dtype == torch.int32 and got.shape == (b, h, w)
     assert torch.equal(got, center_argmin_reference(*args))
+
+
+def _warp_case(b, c, h, w, oh, ow, seed=0):
+    """Coords over [-1.3, 1.3] (corners off the image, fully off-image
+    pixels) and exact integer pixel coords on the first row."""
+    g = torch.Generator().manual_seed(seed)
+    image = torch.rand(b, c, h, w, generator=g)
+    coords = torch.rand(b, oh, ow, 2, generator=g) * 2.6 - 1.3
+    coords[:, 0, :, 0] = -1.0 + 2.0 * (torch.arange(ow) % w) / (w - 1)
+    coords[:, 0, :, 1] = -1.0
+    return image.cuda(), coords.cuda()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,c,h,w,oh,ow", [(4, 3, 1024, 1024, 1024, 1024),
+                                           (2, 3, 37, 53, 37, 53),
+                                           (1, 1, 5, 7, 9, 4)])
+def test_warp_kernel_matches_plain_version(b, c, h, w, oh, ow):
+    _need_card()
+    image, coords = _warp_case(b, c, h, w, oh, ow)
+    before = warp_bilinear.launches
+    got = warp_bilinear(image, coords)
+    torch.cuda.synchronize()
+    assert warp_bilinear.launches == before + 1
+    for g, r in zip(got, warp_bilinear_reference(image, coords)):
+        assert g.shape == (b, c, oh, ow)
+        assert torch.equal(g, r)
+    value, gx, gy = warp_bilinear(image, coords, with_grads=False)
+    assert gx is None and gy is None and torch.equal(value, got[0])
+
+
+@pytest.mark.gpu
+def test_warp_kernel_refuses_border_padding():
+    _need_card()
+    from mgnet_tpu_torch.geometry.image import grid_sample_planar
+
+    image, coords = _warp_case(1, 3, 8, 8, 8, 8)
+    with pytest.raises(ValueError, match="border"):
+        grid_sample_planar(image, coords, "border")
+
+
+def _ssim_case(b, c, h, w, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.rand(b, c, h, w, generator=g)
+    y = (x + 0.2 * torch.randn(b, c, h, w, generator=g)).clamp(0, 1)
+    return x.cuda(), y.cuda(), torch.rand(b, h, w, generator=g).cuda()
+
+
+SSIM_SHAPES = [(4, 3, 1024, 1024), (2, 3, 37, 53), (1, 3, 2, 2),
+               (1, 3, 3, 33), (1, 1, 17, 18)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SSIM_SHAPES)
+def test_ssim_forward_kernel_matches_plain_version(shape):
+    _need_card()
+    x, y, _ = _ssim_case(*shape)
+    before = ssim_residual_fwd.launches
+    got = ssim_residual_fwd(x, y, 0.85)
+    torch.cuda.synchronize()
+    assert ssim_residual_fwd.launches == before + 1
+    assert torch.equal(got, ssim_residual_reference(x, y, 0.85))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SSIM_SHAPES)
+def test_ssim_backward_kernel_matches_plain_version(shape):
+    _need_card()
+    x, y, g = _ssim_case(*shape)
+    before = ssim_residual_bwd.launches
+    dx, dy = ssim_residual_bwd(x, y, g, 0.85)
+    torch.cuda.synchronize()
+    assert ssim_residual_bwd.launches == before + 1
+    rx, ry = ssim_residual_bwd_reference(x, y, g, 0.85)
+    assert torch.equal(dx, rx) and torch.equal(dy, ry)
+
+
+@pytest.mark.gpu
+def test_fused_residual_autograd_launches_both_kernels():
+    _need_card()
+    x, y, g = _ssim_case(2, 3, 40, 56)
+    xr = x.clone().requires_grad_()
+    before = (ssim_residual_fwd.launches, ssim_residual_bwd.launches)
+    (fused_photometric_residual(xr, y) * g).sum().backward()
+    torch.cuda.synchronize()
+    assert (ssim_residual_fwd.launches, ssim_residual_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(xr.grad, ssim_residual_bwd_reference(x, y, g)[0])
