@@ -25,19 +25,50 @@
 //   dy_pad = P^T q_mu_y + 2 y_pad P^T q_xx + x_pad P^T q_xy - dL1
 // with P^T the transposed 3x3 mean pool; then the reflect-pad transpose
 // folds padded row (column) 0 onto 2 and H+1 onto H-1 (W+1 onto W-1).
-// One block per (b, 16 x 32 output tile) recomputes the statistics over
-// the tile plus a 2-pixel halo, forms the four q maps of the tile plus a
-// 1-pixel halo in shared memory, and applies P^T, the L1 sign term and
-// the fold there; a tile on the image border evaluates the padded-space
-// gradient at the folded rows and columns too, which its q maps cover.
+// A block is one warp and one tile of one (batch, channel) plane: 30
+// output columns by 16 output rows. Lane l owns q column j0-1+l (the
+// tile and a 1-column halo each side) and walks the band down, two q rows
+// a step, from q row i0-1 (a 1-row halo above and below: 18 q rows for 16
+// output rows). x and y of the last padded rows of a lane's 3-column
+// window stay in registers; each new padded row is three 128-byte
+// coalesced loads of each, the reflect padding applied to a lane's three
+// column indices once and to a row index once. The statistics are the
+// sequential row-major 9-term sums of the plain version, once per q
+// position. The transposed pool is separable in the plain version's own
+// order: the column sum V(r, j) = ((q(r-2, j) + q(r-1, j)) + q(r, j)) / 9
+// is formed once per q position in its lane, the neighbours' V come by
+// shuffle, and P^T q (r, cc) = (V(r, cc-2) + V(r, cc-1)) + V(r, cc): the
+// same operations on the same operands as F.pad(q, 2) and the two sums of
+// _pool3_transpose, so no rounding changes (q is zero outside the image,
+// so the rows and columns past the border add exact zeros, as the pad
+// does). The reflect fold runs only where it applies: on output rows 1
+// and H-2 (padded rows 0 and H+1 are V rows of q rows 0 and H-1 with
+// zeros) and on output columns 1 and W-2, where x_pad and y_pad equal the
+// output's own and g is zero; elsewhere a warp takes the path without
+// folds. g of the band is read once into shared memory and serves the q
+// pass and the L1 sign term. Channels run as blocks (grid z = B x C), not
+// as a loop inside the block, so g is read once per channel; on an H100
+// that was the faster of the two at the training and the KITTI shapes in
+// the tile sweep described in PERF.md (section 6). With channels as
+// blocks the 16-row band was chosen over 32 rows for the KITTI shape
+// (2x3x384x1280), where it was faster, at a slight cost at
+// 4x3x1024x1024, and 64 rows was slower at both; 8 rows was timed only
+// with the channel loop. The 80-register cap was faster than no cap.
 //
 // Bounds on an H100 at the training step's shape (B=4, C=3, 1024x1024):
 //   forward: x, y in (100.7 MB) + r out (16.8 MB) -> 35 us at 3.35 TB/s;
 //            ~90 f32 operations per pixel and channel -> 1.1 G -> 17 us
 //            at 67 TFLOP/s. Bound by memory.
-//   backward: x, y, g in (117.4 MB) + dx, dy out (100.7 MB) -> 65 us;
-//            ~300 f32 operations per pixel and channel -> 3.8 G -> 56 us.
-//            Bound by memory, nearly balanced.
+//   backward: x, y in (100.7 MB), g in once per channel (50.3 MB), dx, dy
+//            out (100.7 MB): 251.7 MB -> 75 us (65 us with g read once);
+//            153 f32 operations per pixel and channel (a division, a
+//            comparison or a select counted as one): the statistics 72
+//            (27 products, 40 sums, 5 scalings), the cotangents 44 (3
+//            divisions), the transposed pool 20, the gradient 17 ->
+//            1.93 G -> 29 us at 67 TFLOP/s. Bound by memory; the kernel
+//            issues about 1.2x these operations (the halo) plus loads,
+//            shuffles and index arithmetic, and is limited by issue: it
+//            runs at about 3x the bound (PERF.md).
 // Both evaluate their arithmetic in the order of the plain PyTorch
 // versions in ops/ssim.py, one rounding per operation (the library is
 // built with -fmad=false; divisions by 9 and by C are multiplications by
@@ -153,47 +184,51 @@ ssim_fwd_kernel(const float* __restrict__ x, const float* __restrict__ y,
 
 // --------------------------------------------------------------- backward
 
-constexpr int kQH = kTileH + 2, kQW = kTileW + 2;  // q maps: tile + 1 halo
-constexpr int kXH = kTileH + 4, kXW = kTileW + 4;  // x, y: tile + 2 halo
+constexpr int kBwdTileW = 30;  // output columns of a block: lanes 1..30
+constexpr int kBwdBand = 16;   // output rows of a block
 
-struct BwdSmem {
-  float x[kXH][kXW];   // (k, l) <-> padded (i0 - 1 + k, j0 - 1 + l)
-  float y[kXH][kXW];
-  float q[4][kQH][kQW];  // (k, l) <-> q position (i0 - 1 + k, j0 - 1 + l)
+// Column sums V of the four q maps at one padded row, for a lane's own q
+// column (c) and its left and right neighbours' (l, r).
+struct VRow {
+  float l[4], c[4], r[4];
 };
 
-// Padded-space gradient (dx_pad, dy_pad) at padded position (r, cc), with
-// i0, j0 the tile origin. Needs q rows r-2..r and columns cc-2..cc (zero
-// outside the image) and x_pad, y_pad at (r, cc), all inside the tile's
-// shared memory, and g at source (r-1, cc-1) (zero outside the image).
-__device__ __forceinline__ void padded_grad(
-    const BwdSmem& sm, const float* __restrict__ gb, int r, int cc, int i0,
-    int j0, int h, int w, const Params& prm, float& dx, float& dy) {
-  float t[4];
+// V = ((q(r-2) + q(r-1)) + q(r)) / 9 in the lane's column, then the
+// neighbours' V by shuffle. Every lane of the warp calls it.
+__device__ __forceinline__ void make_vrow(const float (&qa)[4],
+                                          const float (&qb)[4],
+                                          const float (&qc)[4], float inv9,
+                                          VRow& v) {
 #pragma unroll
   for (int m = 0; m < 4; ++m) {
-    float rs[3];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      const int qj = cc - 2 + k;
-      float col[3];
-#pragma unroll
-      for (int u = 0; u < 3; ++u) {
-        const int qi = r - 2 + u;
-        col[u] = (qi >= 0 && qi < h && qj >= 0 && qj < w)
-                     ? sm.q[m][qi - i0 + 1][qj - j0 + 1]
-                     : 0.0f;
-      }
-      rs[k] = ((col[0] + col[1]) + col[2]) * prm.inv9;
-    }
-    t[m] = (rs[0] + rs[1]) + rs[2];
+    v.c[m] = ((qa[m] + qb[m]) + qc[m]) * inv9;
+    v.l[m] = __shfl_up_sync(0xffffffffu, v.c[m], 1);
+    v.r[m] = __shfl_down_sync(0xffffffffu, v.c[m], 1);
   }
-  const float xv = sm.x[r - i0 + 1][cc - j0 + 1];
-  const float yv = sm.y[r - i0 + 1][cc - j0 + 1];
-  const int si = r - 1, sj = cc - 1;
-  const float gv = (si >= 0 && si < h && sj >= 0 && sj < w)
-                       ? gb[static_cast<long long>(si) * w + sj]
-                       : 0.0f;
+}
+
+// Which padded column a transposed pool is taken at: the lane's own, or
+// the fold columns 0 and W+1, whose V terms outside the image are zero.
+enum PadCol { kOwnCol, kCol0, kColW1 };
+
+template <int kCol>
+__device__ __forceinline__ void pool_t(const VRow& v, float (&t)[4]) {
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    if (kCol == kOwnCol) {
+      t[m] = (v.l[m] + v.c[m]) + v.r[m];
+    } else if (kCol == kCol0) {
+      t[m] = (0.0f + 0.0f) + v.l[m];  // V(-2) + V(-1) + V(0)
+    } else {
+      t[m] = (v.r[m] + 0.0f) + 0.0f;  // V(W-1) + V(W) + V(W+1)
+    }
+  }
+}
+
+// Padded-space gradient from the transposed pools t, x_pad, y_pad and g.
+__device__ __forceinline__ void grad_at(const float (&t)[4], float xv,
+                                        float yv, float gv, const Params& prm,
+                                        float& dx, float& dy) {
   const float diff = xv - yv;
   const float sgn = diff > 0.0f ? 1.0f : (diff < 0.0f ? -1.0f : 0.0f);
   const float l1 = (prm.l1_k * gv) * sgn;
@@ -201,126 +236,227 @@ __device__ __forceinline__ void padded_grad(
   dy = ((t[1] + (2.0f * yv) * t[2]) + xv * t[3]) - l1;
 }
 
-// Row fold of the reflect-pad transpose at padded (r, cc).
-__device__ __forceinline__ void row_folded(
-    const BwdSmem& sm, const float* __restrict__ gb, int r, int cc, int i0,
-    int j0, int h, int w, const Params& prm, float& dx, float& dy) {
-  padded_grad(sm, gb, r, cc, i0, j0, h, w, prm, dx, dy);
-  float ex, ey;
-  if (r == 2) {
-    padded_grad(sm, gb, 0, cc, i0, j0, h, w, prm, ex, ey);
+// The row fold at padded column kCol: the gradient at the output's padded
+// row, plus padded row 0 on output row 1 and padded row H+1 on output row
+// H-2, in that order. The reflect pad makes x_pad, y_pad at the folded
+// rows and columns equal to the output's own; g is zero there.
+template <int kCol>
+__device__ __forceinline__ void row_folded(const VRow& vr, const VRow& v0,
+                                           const VRow& vh, bool top, bool bot,
+                                           float xv, float yv, float gv,
+                                           const Params& prm, float& dx,
+                                           float& dy) {
+  float t[4], ex, ey;
+  pool_t<kCol>(vr, t);
+  grad_at(t, xv, yv, kCol == kOwnCol ? gv : 0.0f, prm, dx, dy);
+  if (top) {
+    pool_t<kCol>(v0, t);
+    grad_at(t, xv, yv, 0.0f, prm, ex, ey);
     dx = dx + ex;
     dy = dy + ey;
   }
-  if (r == h - 1) {
-    padded_grad(sm, gb, h + 1, cc, i0, j0, h, w, prm, ex, ey);
+  if (bot) {
+    pool_t<kCol>(vh, t);
+    grad_at(t, xv, yv, 0.0f, prm, ex, ey);
     dx = dx + ex;
     dy = dy + ey;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// x, y at a lane's three source columns of one padded row.
+struct RawRow {
+  float x[3], y[3];
+};
+
+// Sums of x, y, x^2, y^2, xy over a 3x3 window, row-major one term at a
+// time (_pool3_seq's order), the products formed from the window rows.
+struct Sums {
+  float x, y, xx, yy, xy;
+};
+
+// Adds one window row to the sums; kFirst starts them with its first entry.
+template <bool kFirst>
+__device__ __forceinline__ void sum_row(const RawRow& r, Sums& s) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float a = r.x[k], bb = r.y[k];
+    if (kFirst && k == 0) {
+      s.x = a;
+      s.y = bb;
+      s.xx = a * a;
+      s.yy = bb * bb;
+      s.xy = a * bb;
+    } else {
+      s.x = s.x + a;
+      s.y = s.y + bb;
+      s.xx = s.xx + a * a;
+      s.yy = s.yy + bb * bb;
+      s.xy = s.xy + a * bb;
+    }
+  }
+}
+
+// Cotangents (q_mu_x, q_mu_y, q_xx, q_xy) of the pooled statistics at one
+// q position from its window sums and g there, in the order of the plain
+// version (ssim.py:173-195 in closed form).
+__device__ __forceinline__ void cotangents(const Sums& s, float gq,
+                                           const Params& prm, float (&q)[4]) {
+  const float mu_x = s.x * prm.inv9;
+  const float mu_y = s.y * prm.inv9;
+  const float pxx = s.xx * prm.inv9;
+  const float pyy = s.yy * prm.inv9;
+  const float pxy = s.xy * prm.inv9;
+  const float mu_xx = mu_x * mu_x;
+  const float mu_yy = mu_y * mu_y;
+  const float mu_xy = mu_x * mu_y;
+  const float a = 2.0f * mu_xy + prm.c1;
+  const float bv = 2.0f * (pxy - mu_xy) + prm.c2;
+  const float cd = (mu_xx + mu_yy) + prm.c1;
+  const float d = ((pxx - mu_xx) + (pyy - mu_yy)) + prm.c2;
+  const float inv_cdd = 1.0f / (cd * d);
+  const float vv = (a * bv) * inv_cdd;
+  const float lh = (1.0f - vv) * 0.5f;
+  const float gc = gq * prm.inv_c;
+  const float gv = (lh > 0.0f && lh < 1.0f) ? prm.gv_k * gc : 0.0f;
+  const float ga = (gv * bv) * inv_cdd;
+  const float gb2 = (gv * a) * inv_cdd;
+  const float gcd = -(gv * vv) / cd;
+  const float gd = -(gv * vv) / d;
+  const float gab = ga - gb2;
+  const float gcdd = gcd - gd;
+  q[0] = 2.0f * (mu_y * gab + mu_x * gcdd);
+  q[1] = 2.0f * (mu_x * gab + mu_y * gcdd);
+  q[2] = gd;
+  q[3] = 2.0f * gb2;
+}
+
+// dx, dy at output row i from q rows i-1 (qa), i (qb), i+1 (qc) and x, y
+// at the output position. Every lane of the warp calls it; `folds` (the
+// same in the whole warp) says whether a fold row or column may apply.
+__device__ __forceinline__ void output_row(
+    const float (&qa)[4], const float (&qb)[4], const float (&qc)[4],
+    float xv, float yv, float gv, int i, int jq, int h, int w, bool folds,
+    const Params& prm, float& ox, float& oy) {
+  VRow vr;
+  make_vrow(qa, qb, qc, prm.inv9, vr);
+  if (!folds) {
+    float t[4];
+    pool_t<kOwnCol>(vr, t);
+    grad_at(t, xv, yv, gv, prm, ox, oy);
+    return;
+  }
+  const float zero4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  const bool top = i == 1, bot = i == h - 2;
+  VRow v0 = {}, vh = {};
+  if (top) make_vrow(zero4, zero4, qa, prm.inv9, v0);  // padded row 0
+  if (bot) make_vrow(qc, zero4, zero4, prm.inv9, vh);  // padded row H+1
+  float ex, ey;
+  row_folded<kOwnCol>(vr, v0, vh, top, bot, xv, yv, gv, prm, ox, oy);
+  if (jq == 1) {
+    row_folded<kCol0>(vr, v0, vh, top, bot, xv, yv, gv, prm, ex, ey);
+    ox = ox + ex;
+    oy = oy + ey;
+  }
+  if (jq == w - 2) {
+    row_folded<kColW1>(vr, v0, vh, top, bot, xv, yv, gv, prm, ex, ey);
+    ox = ox + ex;
+    oy = oy + ey;
+  }
+}
+
+// One warp per block: the kBwdTileW output columns of a column tile and
+// kBwdBand output rows of one (batch, channel) plane, two q rows a step.
+// At most 80 registers, so that 24 warps fit on an SM.
+__global__ void __launch_bounds__(32, 24)
 ssim_bwd_kernel(const float* __restrict__ x, const float* __restrict__ y,
                 const float* __restrict__ g, float* __restrict__ dx,
                 float* __restrict__ dy, int c, int h, int w, Params prm) {
-  __shared__ BwdSmem sm;
-  const int b = blockIdx.z;
-  const int i0 = blockIdx.y * kTileH;
-  const int j0 = blockIdx.x * kTileW;
-  const int tid = threadIdx.y * kThreadsX + threadIdx.x;
+  // g at q rows i0-1 .. i0+kBwdBand+1 of the lane's column, zero outside
+  __shared__ float gw[(kBwdBand + 3) * 32];
+  const int lane = threadIdx.x;
+  const int i0 = blockIdx.y * kBwdBand;
+  const int i1 = min(i0 + kBwdBand, h);
+  const int b = blockIdx.z / c;
+  const int jq = blockIdx.x * kBwdTileW - 1 + lane;  // the lane's q column
+  const bool col_in = jq >= 0 && jq < w;
+  const bool writes = lane >= 1 && lane <= kBwdTileW && jq < w;
+  const int src[3] = {reflect_index(jq - 1, w), reflect_index(jq, w),
+                      reflect_index(jq + 1, w)};
+  const bool fold_cols = __any_sync(0xffffffffu, jq == 1 || jq == w - 2);
   const long long plane = static_cast<long long>(h) * w;
+  const long long base = static_cast<long long>(blockIdx.z) * plane;
   const float* gb = g + static_cast<long long>(b) * plane;
+#pragma unroll
+  for (int k = 0; k < kBwdBand + 3; ++k) {
+    const int qi = i0 - 1 + k;
+    gw[k * 32 + lane] = (col_in && qi >= 0 && qi < h)
+                            ? gb[static_cast<long long>(qi) * w + jq]
+                            : 0.0f;
+  }
+  __syncwarp();
+  const float* gq_at = gw - (i0 - 1) * 32 + lane;  // gq_at[qi * 32]
+  const float* xp = x + base;
+  const float* yp = y + base;
 
-  for (int ch = 0; ch < c; ++ch) {
-    const long long base = (static_cast<long long>(b) * c + ch) * plane;
-    // x, y at padded rows i0-1 .. i0+kTileH+2 (source = padded - 1)
-    for (int e = tid; e < kXH * kXW; e += kThreads) {
-      const int k = e / kXW, l = e % kXW;
-      const long long src =
-          static_cast<long long>(reflect_index(i0 - 2 + k, h)) * w +
-          reflect_index(j0 - 2 + l, w);
-      sm.x[k][l] = x[base + src];
-      sm.y[k][l] = y[base + src];
-    }
-    __syncthreads();
-    // q maps at q rows i0-1 .. i0+kTileH; q (qi, qj) pools padded rows
-    // qi..qi+2 = smem rows k..k+2 (dy-major sequential sums, as the plain
-    // version and the TPU kernel)
-    for (int e = tid; e < kQH * kQW; e += kThreads) {
-      const int k = e / kQW, l = e % kQW;
-      const int qi = i0 - 1 + k, qj = j0 - 1 + l;
-      float q_mu_x = 0.0f, q_mu_y = 0.0f, q_xx = 0.0f, q_xy = 0.0f;
-      if (qi >= 0 && qi < h && qj >= 0 && qj < w) {
-        float sxs = 0.0f, sys = 0.0f, sxx = 0.0f, syy = 0.0f, sxy = 0.0f;
+  auto load = [&](int padded, RawRow& r) {
+    const int off = reflect_index(padded - 1, h) * w;
 #pragma unroll
-        for (int u = 0; u < 3; ++u) {
+    for (int k = 0; k < 3; ++k) {
+      r.x[k] = __ldg(xp + (off + src[k]));
+      r.y[k] = __ldg(yp + (off + src[k]));
+    }
+  };
+  // q at (qi, jq) from padded rows qi .. qi+2, zero outside the image
+  auto q_row = [&](const RawRow& r0, const RawRow& r1, const RawRow& r2,
+                   int qi, float(&q)[4]) {
+    Sums s;
+    float t[4];
+    sum_row<true>(r0, s);
+    sum_row<false>(r1, s);
+    sum_row<false>(r2, s);
+    cotangents(s, gq_at[qi * 32], prm, t);
+    const bool in = col_in && qi >= 0 && qi < h;
 #pragma unroll
-          for (int v = 0; v < 3; ++v) {
-            const float a = sm.x[k + u][l + v];
-            const float bb = sm.y[k + u][l + v];
-            const bool first = u == 0 && v == 0;
-            sxs = first ? a : sxs + a;
-            sys = first ? bb : sys + bb;
-            sxx = first ? a * a : sxx + a * a;
-            syy = first ? bb * bb : syy + bb * bb;
-            sxy = first ? a * bb : sxy + a * bb;
-          }
-        }
-        const float mu_x = sxs * prm.inv9;
-        const float mu_y = sys * prm.inv9;
-        const float pxx = sxx * prm.inv9;
-        const float pyy = syy * prm.inv9;
-        const float pxy = sxy * prm.inv9;
-        const float mu_xx = mu_x * mu_x;
-        const float mu_yy = mu_y * mu_y;
-        const float mu_xy = mu_x * mu_y;
-        const float a = 2.0f * mu_xy + prm.c1;
-        const float bv = 2.0f * (pxy - mu_xy) + prm.c2;
-        const float cd = (mu_xx + mu_yy) + prm.c1;
-        const float d = ((pxx - mu_xx) + (pyy - mu_yy)) + prm.c2;
-        const float inv_cdd = 1.0f / (cd * d);
-        const float vv = (a * bv) * inv_cdd;
-        const float lh = (1.0f - vv) * 0.5f;
-        const float gc = gb[static_cast<long long>(qi) * w + qj] * prm.inv_c;
-        const float gv = (lh > 0.0f && lh < 1.0f) ? prm.gv_k * gc : 0.0f;
-        const float ga = (gv * bv) * inv_cdd;
-        const float gb2 = (gv * a) * inv_cdd;
-        const float gcd = -(gv * vv) / cd;
-        const float gd = -(gv * vv) / d;
-        const float gab = ga - gb2;
-        const float gcdd = gcd - gd;
-        q_mu_x = 2.0f * (mu_y * gab + mu_x * gcdd);
-        q_mu_y = 2.0f * (mu_x * gab + mu_y * gcdd);
-        q_xx = gd;
-        q_xy = 2.0f * gb2;
-      }
-      sm.q[0][k][l] = q_mu_x;
-      sm.q[1][k][l] = q_mu_y;
-      sm.q[2][k][l] = q_xx;
-      sm.q[3][k][l] = q_xy;
+    for (int m = 0; m < 4; ++m) q[m] = in ? t[m] : 0.0f;
+  };
+  auto emit = [&](const float(&qa)[4], const float(&qb)[4],
+                  const float(&qc)[4], const RawRow& rp, int i) {
+    const bool folds = fold_cols || i == 1 || i == h - 2;
+    float ox, oy;
+    output_row(qa, qb, qc, rp.x[1], rp.y[1], gq_at[i * 32], i, jq, h, w,
+               folds, prm, ox, oy);
+    if (writes) {
+      const long long o = base + static_cast<long long>(i) * w + jq;
+      dx[o] = ox;
+      dy[o] = oy;
     }
-    __syncthreads();
-    for (int e = tid; e < kTileH * kTileW; e += kThreads) {
-      const int i = i0 + e / kTileW, j = j0 + e % kTileW;
-      if (i >= h || j >= w) continue;
-      const int r = i + 1, cc = j + 1;  // padded position
-      float vx, vy, ex, ey;
-      row_folded(sm, gb, r, cc, i0, j0, h, w, prm, vx, vy);
-      if (cc == 2) {
-        row_folded(sm, gb, r, 0, i0, j0, h, w, prm, ex, ey);
-        vx = vx + ex;
-        vy = vy + ey;
-      }
-      if (cc == w - 1) {
-        row_folded(sm, gb, r, w + 1, i0, j0, h, w, prm, ex, ey);
-        vx = vx + ex;
-        vy = vy + ey;
-      }
-      const long long o = base + static_cast<long long>(i) * w + j;
-      dx[o] = vx;
-      dy[o] = vy;
-    }
-    __syncthreads();
+  };
+  // The step at q rows qi, qi+1: the window holds padded rows qi, qi+1 in
+  // ra, rb and takes qi+2, qi+3 into rc, rd; qc, qd take q rows qi, qi+1,
+  // so output rows qi-1 (q rows qa, qb, qc) and qi (qb, qc, qd) are
+  // formed. Two steps an iteration: the windows rotate by renaming.
+  auto step = [&](const RawRow& ra, const RawRow& rb, RawRow& rc,
+                  RawRow& rd, const float(&qa)[4], const float(&qb)[4],
+                  float(&qc)[4], float(&qd)[4], int qi) {
+    load(qi + 2, rc);
+    load(qi + 3, rd);
+    q_row(ra, rb, rc, qi, qc);
+    q_row(rb, rc, rd, qi + 1, qd);
+    if (qi > i0) emit(qa, qb, qc, ra, qi - 1);
+    if (qi >= i0 && qi < i1) emit(qb, qc, qd, rb, qi);
+  };
+  RawRow r0, r1, r2, r3;
+  float q0[4] = {0.0f, 0.0f, 0.0f, 0.0f}, q1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float q2[4], q3[4];
+  load(i0 - 1, r0);
+  load(i0, r1);
+  for (int qi = i0 - 1;;) {
+    step(r0, r1, r2, r3, q0, q1, q2, q3, qi);
+    qi += 2;
+    if (qi > i1) break;
+    step(r2, r3, r0, r1, q2, q3, q0, q1, qi);
+    qi += 2;
+    if (qi > i1) break;
   }
 }
 
@@ -373,9 +509,13 @@ extern "C" int mgnet_ssim_residual_bwd(const void* x, const void* y,
                                        float c1, float c2, float inv9,
                                        float inv_c, float gv_k, float l1_k,
                                        void* stream) {
-  if (batch == 0 || h == 0 || w == 0) return static_cast<int>(cudaSuccess);
-  ssim_bwd_kernel<<<tile_grid(batch, h, w), dim3(kThreadsX, kThreadsY), 0,
-                    static_cast<cudaStream_t>(stream)>>>(
+  if (batch == 0 || c == 0 || h == 0 || w == 0) {
+    return static_cast<int>(cudaSuccess);
+  }
+  const dim3 grid(static_cast<unsigned>((w + kBwdTileW - 1) / kBwdTileW),
+                  static_cast<unsigned>((h + kBwdBand - 1) / kBwdBand),
+                  static_cast<unsigned>(batch * c));
+  ssim_bwd_kernel<<<grid, 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(y),
       static_cast<const float*>(g), static_cast<float*>(dx),
       static_cast<float*>(dy), c, h, w,

@@ -49,7 +49,7 @@ __all__ = [
 SSIM_C1 = 1e-4
 SSIM_C2 = 9e-4
 _INV9 = 1.0 / 9.0
-_MAX_BATCH = 65535  # gridDim.z
+_MAX_PLANES = 65535  # gridDim.z: the forward's B, the backward's B x C
 
 
 def _pad(v: torch.Tensor) -> torch.Tensor:
@@ -183,12 +183,13 @@ def _check(name, *tensors, shape=None) -> None:
                          f"{tuple(tensors[2].shape)}")
 
 
-def _launch_ready(name, tensors) -> ctypes.CDLL:
+def _launch_ready(name, tensors, planes) -> ctypes.CDLL:
     x = tensors[0]
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    if x.shape[0] > _MAX_BATCH:
-        raise ValueError(f"{name}: batch {x.shape[0]} > {_MAX_BATCH}")
+    if planes > _MAX_PLANES:
+        raise ValueError(f"{name}: {planes} planes on the grid's z axis > "
+                         f"{_MAX_PLANES}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: inputs must be contiguous")
     return load_library()
@@ -209,7 +210,7 @@ def ssim_residual_fwd(x: torch.Tensor, y: torch.Tensor,
     _check("ssim_residual_fwd", x, y)
     if x.device.type == "cpu":
         return ssim_residual_reference(x, y, ssim_weight)
-    lib = _launch_ready("ssim_residual_fwd", (x, y))
+    lib = _launch_ready("ssim_residual_fwd", (x, y), x.shape[0])
     b, c, h, w = x.shape
     out = torch.empty((b, h, w), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
@@ -238,7 +239,7 @@ def ssim_residual_bwd(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
     _check("ssim_residual_bwd", x, y, g, shape=(b, h, w))
     if x.device.type == "cpu":
         return ssim_residual_bwd_reference(x, y, g, ssim_weight)
-    lib = _launch_ready("ssim_residual_bwd", (x, y, g))
+    lib = _launch_ready("ssim_residual_bwd", (x, y, g), b * c)
     dx = torch.empty_like(x)
     dy = torch.empty_like(x)
     with torch.cuda.device(x.device):

@@ -109,8 +109,13 @@ def _ssim_case(b, c, h, w, seed=0):
     return x.cuda(), y.cuda(), torch.rand(b, h, w, generator=g).cuda()
 
 
+# the training step's shape; ragged and degenerate planes; one row and
+# one column past a multiple of the backward's 16-row, 30-column output
+# tile; a plane lower than one tile; the KITTI training shape
+# (configs/MGNet-KITTI-Eigen-Zhou.yaml)
 SSIM_SHAPES = [(4, 3, 1024, 1024), (2, 3, 37, 53), (1, 3, 2, 2),
-               (1, 3, 3, 33), (1, 1, 17, 18)]
+               (1, 3, 3, 33), (1, 1, 17, 18), (1, 3, 129, 61),
+               (2, 3, 13, 95), (2, 3, 384, 1280)]
 
 
 @pytest.mark.gpu
