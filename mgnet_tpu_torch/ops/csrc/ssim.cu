@@ -11,11 +11,28 @@
 //   r = (1/C) sum_c  ws * clamp((1 - SSIM_c) / 2, 0, 1) + wl * |x_c - y_c|
 // where SSIM uses 3x3 mean-pool statistics of the reflect-padded planes
 // (mu_x, mu_y, E[x^2], E[y^2], E[xy]) with c1 = 1e-4, c2 = 9e-4
-// (reference: mgnet_tpu/losses/photometric.py:90-126). One block per
-// (b, 16-row tile, 32-column tile) stages the tile and its 1-pixel halo of
-// x and y for one channel at a time in shared memory, with the reflect
-// padding applied to the load indices (no padded copy in device memory),
-// and keeps the channel sum in registers.
+// (reference: mgnet_tpu/losses/photometric.py:90-126). A block is one
+// warp over 30 output columns and 6 output rows of one image. Lane l owns
+// source column j0-1+l (a 1-column halo each side; its reflect index is
+// computed once) and walks the band down one output row a step, with a
+// window of 3 source rows in registers: x, y and the products x^2, y^2,
+// xy, formed once per source row. The pool is separable in the plain
+// version's order: the lane's column sums (v(i-1) + v(i)) + v(i+1) of the
+// five maps, the neighbours' by shuffle, then (V(j-1) + V(j)) + V(j+1)
+// and the scaling by 1/9; no shared memory and no barrier. For C = 3, the
+// path's, the channels share the step: all three windows are in
+// registers and the output row's channel sum is formed in order and
+// written. The band's 8 source rows of x and y (32 consecutive floats a
+// warp, per channel) are loaded 4 steps ahead of the step that takes them
+// into the window: 6 of them before the first step. Any other C runs the
+// channels one after the other with the band's sums in registers, and
+// reads the band's 2 halo rows again for each channel. The tile sweep of
+// tools/sweep_torch_ssim_fwd.py on an H100 (PERF.md, section 6) chose
+// this: at C = 3 the shared step took 21-33% less time than the channels
+// one after the other; loads issued ahead and bands shorter than 16 rows were
+// faster (a 32-row band took twice as long as an 8-row one); register
+// caps of 64 to 96 were no faster than 128, and ptxas uses 80 registers,
+// below the 128 that __launch_bounds__(32, 16) allows.
 //
 // Backward. Given the upstream g [B, H, W] it returns dx, dy [B, C, H, W]
 // by the closed form of ssim.py:173-195: per pixel of the statistics, the
@@ -57,8 +74,13 @@
 //
 // Bounds on an H100 at the training step's shape (B=4, C=3, 1024x1024):
 //   forward: x, y in (100.7 MB) + r out (16.8 MB) -> 35 us at 3.35 TB/s;
-//            ~90 f32 operations per pixel and channel -> 1.1 G -> 17 us
-//            at 67 TFLOP/s. Bound by memory.
+//            55 f32 operations per pixel and channel (a division, a
+//            comparison or an absolute value counted as one): 3
+//            products, 10 column sums, 10 row sums, 5 scalings, the SSIM
+//            expression 16, its clamp 4, the L1 term and the blend 5, and
+//            1 for the channel mean (C - 1 sums and one scaling a pixel)
+//            -> 0.69 G -> 10 us at 67 TFLOP/s. Bound by memory; the
+//            kernel runs at about 1.5x the bound (PERF.md).
 //   backward: x, y in (100.7 MB), g in once per channel (50.3 MB), dx, dy
 //            out (100.7 MB): 251.7 MB -> 75 us (65 us with g read once);
 //            153 f32 operations per pixel and channel (a division, a
@@ -77,12 +99,6 @@
 #include <cuda_runtime.h>
 
 namespace {
-
-constexpr int kTileW = 32;
-constexpr int kTileH = 16;
-constexpr int kThreadsX = 32;
-constexpr int kThreadsY = 8;
-constexpr int kThreads = kThreadsX * kThreadsY;
 
 // Source index of reflect-padded position p (pad 1, torch/numpy
 // "reflect": -1 -> 1, n -> n - 2), clamped into [0, n) for the positions
@@ -105,79 +121,169 @@ struct Params {
 
 // ---------------------------------------------------------------- forward
 
-__global__ void __launch_bounds__(kThreads)
-ssim_fwd_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                float* __restrict__ out, int c, int h, int w, Params prm) {
-  constexpr int SH = kTileH + 2, SW = kTileW + 2;
-  __shared__ float sx[SH][SW];
-  __shared__ float sy[SH][SW];
-  const int b = blockIdx.z;
-  const int i0 = blockIdx.y * kTileH;
-  const int j0 = blockIdx.x * kTileW;
-  const int tid = threadIdx.y * kThreadsX + threadIdx.x;
-  const long long plane = static_cast<long long>(h) * w;
-  constexpr int kRows = kTileH / kThreadsY;
-  float acc[kRows];
+constexpr int kFwdTileW = 30;      // output columns of a block: lanes 1..30
+constexpr int kFwdBand = 6;        // output rows of a block
+constexpr int kFwdAhead = 4;       // rows loaded ahead of the step using them
+constexpr int kFwdMinBlocks = 16;  // per SM: a cap of 128 registers
+constexpr int kFwdInnerC = 3;      // the C whose channels share a row step
 
-  for (int ch = 0; ch < c; ++ch) {
-    const float* xp = x + (static_cast<long long>(b) * c + ch) * plane;
-    const float* yp = y + (static_cast<long long>(b) * c + ch) * plane;
-    // smem (k, l) holds padded (i0 + k, j0 + l) = source (i0 + k - 1, ...)
-    for (int e = tid; e < SH * SW; e += kThreads) {
-      const int k = e / SW, l = e % SW;
-      const long long src =
-          static_cast<long long>(reflect_index(i0 + k - 1, h)) * w +
-          reflect_index(j0 + l - 1, w);
-      sx[k][l] = xp[src];
-      sy[k][l] = yp[src];
-    }
-    __syncthreads();
+// x, y and the products x^2, y^2, xy at one source row of one channel, in
+// the lane's column.
+struct FwdRow {
+  float x, y, xx, yy, xy;
+};
+
+__device__ __forceinline__ FwdRow fwd_row(float x, float y) {
+  return FwdRow{x, y, x * x, y * y, x * y};
+}
+
+// (V(j-1) + V(j)) + V(j+1) of a column sum V formed in every lane: the
+// neighbours' V by shuffle. Every lane of the warp calls it.
+__device__ __forceinline__ float row_sum3(float v) {
+  const float l = __shfl_up_sync(0xffffffffu, v, 1);
+  const float r = __shfl_down_sync(0xffffffffu, v, 1);
+  return (l + v) + r;
+}
+
+// One channel's ws * clamp((1 - SSIM) / 2, 0, 1) + wl * |x - y| at the
+// output position whose window rows are a (above), b and c (below) in
+// the lane's column. Every lane of the warp calls it.
+__device__ __forceinline__ float fwd_term(const FwdRow& a, const FwdRow& b,
+                                          const FwdRow& c,
+                                          const Params& prm) {
+  const float mu_x = row_sum3((a.x + b.x) + c.x) * prm.inv9;
+  const float mu_y = row_sum3((a.y + b.y) + c.y) * prm.inv9;
+  const float pxx = row_sum3((a.xx + b.xx) + c.xx) * prm.inv9;
+  const float pyy = row_sum3((a.yy + b.yy) + c.yy) * prm.inv9;
+  const float pxy = row_sum3((a.xy + b.xy) + c.xy) * prm.inv9;
+  const float mu_xy = mu_x * mu_y;
+  const float mu_xx = mu_x * mu_x;
+  const float mu_yy = mu_y * mu_y;
+  const float sig_x = pxx - mu_xx;
+  const float sig_y = pyy - mu_yy;
+  const float sig_xy = pxy - mu_xy;
+  const float num = (2.0f * mu_xy + prm.c1) * (2.0f * sig_xy + prm.c2);
+  const float den = ((mu_xx + mu_yy) + prm.c1) * ((sig_x + sig_y) + prm.c2);
+  const float v = num / den;
+  const float s = fminf(fmaxf((1.0f - v) / 2.0f, 0.0f), 1.0f);
+  const float l1 = fabsf(b.x - b.y);
+  return prm.ws * s + prm.wl * l1;
+}
+
+// Where a block's lane sits: the block is one warp over kFwdTileW output
+// columns and kFwdBand output rows of one image; lane l owns source column
+// j0 - 1 + l (a 1-column halo each side) and writes it if it is one of
+// the tile's.
+struct FwdLane {
+  int i0;          // first output row of the band
+  int jq;          // the lane's source column
+  bool writes;
+  long long plane;
+  int col;         // jq reflected into the image
+};
+
+__device__ __forceinline__ FwdLane fwd_lane(int h, int w) {
+  FwdLane l;
+  const int lane = threadIdx.x;
+  l.i0 = blockIdx.y * kFwdBand;
+  l.jq = blockIdx.x * kFwdTileW - 1 + lane;
+  l.writes = lane >= 1 && lane <= kFwdTileW && l.jq < w;
+  l.plane = static_cast<long long>(h) * w;
+  l.col = reflect_index(l.jq, w);
+  return l;
+}
+
+// C = kC known: the lane walks the band one output row a step, holding
+// the 3-row window of every channel in registers, and sums the channels
+// of the output row in order. x and y of each channel's next source row
+// (32 consecutive floats a warp) are loaded kFwdAhead steps before the
+// step that takes them into the window.
+template <int kC>
+__global__ void __launch_bounds__(32, kFwdMinBlocks)
+ssim_fwd_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                float* __restrict__ out, int h, int w, Params prm) {
+  constexpr int kRows = kFwdBand + 2;  // source rows i0-1 .. i0+kFwdBand
+  const FwdLane ln = fwd_lane(h, w);
+  const long long base = static_cast<long long>(blockIdx.z) * kC * ln.plane +
+                         ln.col;
+  const float* xp = x + base;
+  const float* yp = y + base;
+  float* op = out + static_cast<long long>(blockIdx.z) * ln.plane + ln.jq;
+  float rx[kRows][kC], ry[kRows][kC];
+  FwdRow win[3][kC];
+  auto load = [&](int k) {
+    if (k >= kRows) return;
+    const int off = reflect_index(ln.i0 - 1 + k, h) * w;
 #pragma unroll
-    for (int rr = 0; rr < kRows; ++rr) {
-      const int ti = threadIdx.y + rr * kThreadsY;
-      const int tj = threadIdx.x;
-      float rx[3], ry[3], rxx[3], ryy[3], rxy[3];
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const float a0 = sx[ti][tj + k], a1 = sx[ti + 1][tj + k],
-                    a2 = sx[ti + 2][tj + k];
-        const float b0 = sy[ti][tj + k], b1 = sy[ti + 1][tj + k],
-                    b2 = sy[ti + 2][tj + k];
-        rx[k] = (a0 + a1) + a2;
-        ry[k] = (b0 + b1) + b2;
-        rxx[k] = (a0 * a0 + a1 * a1) + a2 * a2;
-        ryy[k] = (b0 * b0 + b1 * b1) + b2 * b2;
-        rxy[k] = (a0 * b0 + a1 * b1) + a2 * b2;
-      }
-      const float mu_x = ((rx[0] + rx[1]) + rx[2]) * prm.inv9;
-      const float mu_y = ((ry[0] + ry[1]) + ry[2]) * prm.inv9;
-      const float pxx = ((rxx[0] + rxx[1]) + rxx[2]) * prm.inv9;
-      const float pyy = ((ryy[0] + ryy[1]) + ryy[2]) * prm.inv9;
-      const float pxy = ((rxy[0] + rxy[1]) + rxy[2]) * prm.inv9;
-      const float mu_xy = mu_x * mu_y;
-      const float mu_xx = mu_x * mu_x;
-      const float mu_yy = mu_y * mu_y;
-      const float sig_x = pxx - mu_xx;
-      const float sig_y = pyy - mu_yy;
-      const float sig_xy = pxy - mu_xy;
-      const float num = (2.0f * mu_xy + prm.c1) * (2.0f * sig_xy + prm.c2);
-      const float den =
-          ((mu_xx + mu_yy) + prm.c1) * ((sig_x + sig_y) + prm.c2);
-      const float v = num / den;
-      const float s = fminf(fmaxf((1.0f - v) / 2.0f, 0.0f), 1.0f);
-      const float l1 = fabsf(sx[ti + 1][tj + 1] - sy[ti + 1][tj + 1]);
-      const float res = prm.ws * s + prm.wl * l1;
-      acc[rr] = ch == 0 ? res : acc[rr] + res;
+    for (int ch = 0; ch < kC; ++ch) {
+      rx[k][ch] = __ldg(xp + ch * ln.plane + off);
+      ry[k][ch] = __ldg(yp + ch * ln.plane + off);
     }
-    __syncthreads();
+  };
+  auto take = [&](int k) {
+#pragma unroll
+    for (int ch = 0; ch < kC; ++ch) {
+      win[k % 3][ch] = fwd_row(rx[k][ch], ry[k][ch]);
+    }
+  };
+#pragma unroll
+  for (int k = 0; k < 2 + kFwdAhead; ++k) load(k);
+  take(0);
+  take(1);
+#pragma unroll
+  for (int r = 0; r < kFwdBand; ++r) {
+    const int i = ln.i0 + r;
+    load(r + 2 + kFwdAhead);
+    take(r + 2);
+    const FwdRow(&a)[kC] = win[r % 3];
+    const FwdRow(&b)[kC] = win[(r + 1) % 3];
+    const FwdRow(&c)[kC] = win[(r + 2) % 3];
+    float acc = fwd_term(a[0], b[0], c[0], prm);
+#pragma unroll
+    for (int ch = 1; ch < kC; ++ch) {
+      acc = acc + fwd_term(a[ch], b[ch], c[ch], prm);
+    }
+    if (ln.writes && i < h) {
+      op[static_cast<long long>(i) * w] = acc * prm.inv_c;
+    }
   }
+}
+
+// Any C: the same tile and walk, one channel after the other, with the
+// band's channel sums in registers; each channel reads the band's two
+// halo rows again.
+__global__ void __launch_bounds__(32, kFwdMinBlocks)
+ssim_fwd_planes_kernel(const float* __restrict__ x,
+                       const float* __restrict__ y, float* __restrict__ out,
+                       int c, int h, int w, Params prm) {
+  const FwdLane ln = fwd_lane(h, w);
+  float acc[kFwdBand];
+  for (int ch = 0; ch < c; ++ch) {
+    const long long base =
+        (static_cast<long long>(blockIdx.z) * c + ch) * ln.plane + ln.col;
+    const float* xp = x + base;
+    const float* yp = y + base;
+    auto load = [&](int i) {
+      const int off = reflect_index(i, h) * w;
+      return fwd_row(__ldg(xp + off), __ldg(yp + off));
+    };
+    FwdRow win[3];
+    win[0] = load(ln.i0 - 1);
+    win[1] = load(ln.i0);
 #pragma unroll
-  for (int rr = 0; rr < kRows; ++rr) {
-    const int i = i0 + threadIdx.y + rr * kThreadsY;
-    const int j = j0 + threadIdx.x;
-    if (i < h && j < w) {
-      out[static_cast<long long>(b) * plane + static_cast<long long>(i) * w +
-          j] = acc[rr] * prm.inv_c;
+    for (int r = 0; r < kFwdBand; ++r) {
+      win[(r + 2) % 3] = load(ln.i0 + r + 1);
+      const float t =
+          fwd_term(win[r % 3], win[(r + 1) % 3], win[(r + 2) % 3], prm);
+      acc[r] = ch == 0 ? t : acc[r] + t;
+    }
+  }
+  float* op = out + static_cast<long long>(blockIdx.z) * ln.plane + ln.jq;
+#pragma unroll
+  for (int r = 0; r < kFwdBand; ++r) {
+    const int i = ln.i0 + r;
+    if (ln.writes && i < h) {
+      op[static_cast<long long>(i) * w] = acc[r] * prm.inv_c;
     }
   }
 }
@@ -474,12 +580,6 @@ Params make_params(float c1, float c2, float ws, float wl, float inv9,
   return p;
 }
 
-dim3 tile_grid(long long batch, int h, int w) {
-  return dim3(static_cast<unsigned>((w + kTileW - 1) / kTileW),
-              static_cast<unsigned>((h + kTileH - 1) / kTileH),
-              static_cast<unsigned>(batch));
-}
-
 }  // namespace
 
 // x, y: [batch, c, h, w] f32; out: [batch, h, w] f32; h, w >= 2. The
@@ -492,11 +592,19 @@ extern "C" int mgnet_ssim_residual_fwd(const void* x, const void* y,
                                        float ws, float wl, float inv9,
                                        float inv_c, void* stream) {
   if (batch == 0 || h == 0 || w == 0) return static_cast<int>(cudaSuccess);
-  ssim_fwd_kernel<<<tile_grid(batch, h, w), dim3(kThreadsX, kThreadsY), 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(y),
-      static_cast<float*>(out), c, h, w,
-      make_params(c1, c2, ws, wl, inv9, inv_c, 0.0f, 0.0f));
+  const dim3 grid(static_cast<unsigned>((w + kFwdTileW - 1) / kFwdTileW),
+                  static_cast<unsigned>((h + kFwdBand - 1) / kFwdBand),
+                  static_cast<unsigned>(batch));
+  const Params prm = make_params(c1, c2, ws, wl, inv9, inv_c, 0.0f, 0.0f);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  const float* yf = static_cast<const float*>(y);
+  float* of = static_cast<float*>(out);
+  if (c == kFwdInnerC) {
+    ssim_fwd_kernel<kFwdInnerC><<<grid, 32, 0, s>>>(xf, yf, of, h, w, prm);
+  } else {
+    ssim_fwd_planes_kernel<<<grid, 32, 0, s>>>(xf, yf, of, c, h, w, prm);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

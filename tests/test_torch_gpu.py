@@ -112,10 +112,13 @@ def _ssim_case(b, c, h, w, seed=0):
 # the training step's shape; ragged and degenerate planes; one row and
 # one column past a multiple of the backward's 16-row, 30-column output
 # tile; a plane lower than one tile; the KITTI training shape
-# (configs/MGNet-KITTI-Eigen-Zhou.yaml)
+# (configs/MGNet-KITTI-Eigen-Zhou.yaml); C = 2, which the forward runs in
+# its kernel for any C; one row and one column past a multiple of the
+# forward's 6-row, 30-column tile
 SSIM_SHAPES = [(4, 3, 1024, 1024), (2, 3, 37, 53), (1, 3, 2, 2),
                (1, 3, 3, 33), (1, 1, 17, 18), (1, 3, 129, 61),
-               (2, 3, 13, 95), (2, 3, 384, 1280)]
+               (2, 3, 13, 95), (2, 3, 384, 1280), (1, 2, 33, 61),
+               (1, 3, 61, 61)]
 
 
 @pytest.mark.gpu

@@ -24,7 +24,10 @@ from mgnet_tpu_torch.ops.ssim import (
     ssim_residual_reference,
 )
 
-SHAPES = [(2, 3, 40, 56), (1, 3, 130, 200), (1, 3, 3, 5)]
+# the last two take the forward kernel's channel count other than 3 (C =
+# 1 and C = 2), at the same tolerances
+SHAPES = [(2, 3, 40, 56), (1, 3, 130, 200), (1, 3, 3, 5), (1, 1, 17, 18),
+          (1, 2, 33, 61)]
 # f32 elementwise on values in [0, 1]: the two sides sum the pool windows
 # and the channel mean in other orders and divide by 9 and 3 where the
 # port multiplies by the f32 reciprocal. The backward's cotangents cancel
