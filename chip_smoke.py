@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (mgnet_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent-center-argmin PATH]
 
 Phases, each printing its findings:
   1. the device: name, count, and nvidia-smi's name and power limit;
@@ -11,7 +11,14 @@ Phases, each printing its findings:
   3. each kernel against its plain PyTorch version at the main paths'
      shapes, then kernel and plain times (CUDA events) and the kernel's
      bound: center_argmin at [1, 1024, 2048], K=128, with invalid,
-     duplicate and out-of-image centers (exact equality); the warp at
+     duplicate and out-of-image centers (case A, exact equality), then
+     on scattered targets (C), at KITTI's [1, 384, 1280] (D) and on
+     instance-like targets (E), each with the kept share of (tile, center)
+     pairs from the kernel's own counter and from
+     center_candidates_reference, the bound of the pairs this data needs,
+     and, given --parent-center-argmin (a center_argmin.cu with the
+     entry (..., batch, n, k, stream) of earlier versions), that kernel's
+     time in the same run; the warp at
      [4, 3, 1024, 1024] on view-synthesis coordinates plus integer,
      partly and fully off-image ones (value, gx, gy), beside
      F.grid_sample forward and forward+backward; the SSIM residual
@@ -24,7 +31,8 @@ Phases, each printing its findings:
      the f32 frame on the card against the same frame on the CPU at a small
      size; three requests with kernel launches counted, outputs checked, and
      panoptic held against the plain clustering on the same head outputs;
-     then the steady-state frame time;
+     center_argmin on request 0's own clustering inputs (case B), as in
+     phase 3; then the steady-state frame time;
   5. one f32 training step on the card against the same step on the CPU
      (batch 2, 128x256, same weights and batch): every loss, and every
      parameter's gradient by cosine;
@@ -49,6 +57,8 @@ import time
 
 T_START = time.perf_counter()  # elapsed seconds include the imports
 
+import argparse
+import ctypes
 import itertools
 import json
 import subprocess
@@ -72,8 +82,11 @@ from mgnet_tpu_torch.inference import build_fused_inference, statics_from_meta
 from mgnet_tpu_torch.models import build_model, init_random_
 from mgnet_tpu_torch.ops import _build
 from mgnet_tpu_torch.ops.center_argmin import (
+    TILE_H as CA_TILE_H,
+    TILE_W as CA_TILE_W,
     center_argmin,
     center_argmin_reference,
+    center_candidates_reference,
     center_inputs,
 )
 from mgnet_tpu_torch.ops.ssim import (
@@ -104,9 +117,17 @@ TRAIN_LAUNCHES = {"warp_bilinear": 6, "ssim_residual_fwd": 8,
                   "ssim_residual_bwd": 6}
 SEED = 0
 DEVICE = "cuda"
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 FLOP/s
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 FLOP/s (an
+# FMA counted as two operations), and the rates of operations that cannot
+# be contracted into FMAs: f32 and f64 (34 TFLOP/s with FMAs)
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
+PEAK_F32_PLAIN_S = 33.5e12
+PEAK_F64_PLAIN_S = 17e12
+# center_argmin: f32 operations per pixel and kept center, f64 operations
+# per tile and center of its candidate rule (csrc/center_argmin.cu)
+CA_PAIR_OPS = 5
+CA_RULE_OPS = 56
 # f32 operations of the SSIM forward per pixel and channel, as
 # csrc/ssim.cu's header counts them
 SSIM_FWD_OPS = 55
@@ -183,54 +204,158 @@ def compare(name, got, want, atol):
     return err
 
 
-def center_argmin_case(gen):
+def center_argmin_case(gen, h=H, w=W):
     """Main-path shapes: coordinates near the grid, K=128 centers with
     invalid slots, duplicates (exact ties) and centers outside the image."""
     dev = DEVICE
-    ys = torch.arange(H, device=dev, dtype=torch.float32)[:, None]
-    xs = torch.arange(W, device=dev, dtype=torch.float32)[None]
-    py = (ys + 20 * torch.randn(1, H, W, generator=gen, device=dev))
-    px = (xs + 20 * torch.randn(1, H, W, generator=gen, device=dev))
-    scale = torch.tensor([H, W], device=dev, dtype=torch.float32)
+    ys = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
+    xs = torch.arange(w, device=dev, dtype=torch.float32)[None]
+    py = (ys + 20 * torch.randn(1, h, w, generator=gen, device=dev))
+    px = (xs + 20 * torch.randn(1, h, w, generator=gen, device=dev))
+    scale = torch.tensor([h, w], device=dev, dtype=torch.float32)
     centers = torch.rand(1, K, 2, generator=gen, device=dev) * scale
     centers[:, 64:80] = centers[:, 0:16]
-    centers[:, 120:124] = torch.tensor([-60.0, W + 90.0], device=dev)
+    centers[:, 120:124] = torch.tensor([-60.0, w + 90.0], device=dev)
     valid = torch.rand(1, K, generator=gen, device=dev) > 0.2
     return (py.contiguous(), px.contiguous(), *center_inputs(centers, valid))
 
 
-def phase_kernels(smi):
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    args = center_argmin_case(gen)
-    got = center_argmin(*args)
-    want = center_argmin_reference(*args)
-    torch.cuda.synchronize()
-    max_err = float((got - want).abs().max())
-    if not torch.equal(got, want):
-        raise AssertionError(
-            f"center_argmin: kernel disagrees with the plain version on "
-            f"{int((got != want).sum())} pixels (max |index diff| {max_err})")
-    ms = cuda_ms(lambda: center_argmin(*args), iters=200)
-    plain_ms = cuda_ms(lambda: center_argmin_reference(*args), iters=10)
+def center_argmin_cases(gen):
+    """Cases A (the main path's test data), C (targets uniform over the
+    image, A's centers: nothing to prune but the sentinels), D (A's
+    distribution at KITTI's serving shape, 384x1280) and E (each target
+    within N(0, 2^2) of the valid center nearest its pixel, as a trained
+    offset head gives on thing pixels; A's centers)."""
+    a = center_argmin_case(gen)
+    _, h, w = a[0].shape
+    c = (torch.rand(1, h, w, generator=gen, device=DEVICE) * h,
+         torch.rand(1, h, w, generator=gen, device=DEVICE) * w, *a[2:])
+    d = center_argmin_case(gen, 384, 1280)
+    ys = torch.arange(h, device=DEVICE, dtype=torch.float32)[:, None]
+    xs = torch.arange(w, device=DEVICE, dtype=torch.float32)[None]
+    near = center_argmin_reference(ys.expand(1, h, w).contiguous(),
+                                   xs.expand(1, h, w).contiguous(),
+                                   *a[2:])[0].long()
+    e = tuple((t[0][near] + 2 * torch.randn(1, h, w, generator=gen,
+                                            device=DEVICE)).contiguous()
+              for t in a[2:4]) + a[2:]
+    return {"A": a, "C": c, "D": d, "E": e}
+
+
+def load_parent_center_argmin(source: Path):
+    """Build a center_argmin.cu with the entry (py, px, cy, cx, c2, out,
+    batch, n, k, stream) of earlier versions into its own library and
+    return launch(py, px, cy, cx, c2, out)."""
+    out_dir = _build.BUILD_DIR / "parent"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib_path = out_dir / "libparent_center_argmin.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+                    str(lib_path), str(source)], check=True,
+                   capture_output=True, text=True)
+    fn = ctypes.CDLL(str(lib_path)).mgnet_center_argmin
+    vp, ll = ctypes.c_void_p, ctypes.c_longlong
+    fn.argtypes = [vp] * 6 + [ll, ll, ctypes.c_int, vp]
+    fn.restype = ctypes.c_int
+
+    def launch(py, px, cy, cx, c2, out):
+        b, h, w = py.shape
+        rc = fn(py.data_ptr(), px.data_ptr(), cy.data_ptr(), cx.data_ptr(),
+                c2.data_ptr(), out.data_ptr(), b, h * w, cy.shape[1],
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"parent center_argmin: launch failed ({rc})")
+        return out
+    return launch
+
+
+def center_argmin_bound(args, mask):
+    """(bound ms, by, all-pairs bound ms, MB, G f32 ops) of center_argmin
+    on ``args``, where ``mask`` [B, nTy, nTx, K] is what the kernel scans:
+    each plane read once and the output written once, against the f32
+    operations of the kept (pixel, center) pairs at the non-FMA f32 rate
+    plus the candidate rule's f64 operations at the f64 rate. The
+    all-pairs figure is the bound of the kernel without pruning: every
+    pair's operations at the FMA-counted f32 peak."""
     b, h, w = args[0].shape
     k = args[2].shape[1]
     n_bytes = b * h * w * (4 + 4 + 4) + 3 * b * k * 4
-    n_ops = b * h * w * k * 5
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_S * 1e3, n_ops / PEAK_F32_S * 1e3
+    rows = torch.full((-(-h // CA_TILE_H),), CA_TILE_H)
+    rows[-1] = h - CA_TILE_H * (len(rows) - 1)
+    cols = torch.full((-(-w // CA_TILE_W),), CA_TILE_W)
+    cols[-1] = w - CA_TILE_W * (len(cols) - 1)
+    pixels = (rows[:, None] * cols[None])[None, :, :, None]
+    pair_ops = CA_PAIR_OPS * int((mask * pixels).sum())
+    rule_ops = CA_RULE_OPS * mask.numel()
+    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    t_ops = (pair_ops / PEAK_F32_PLAIN_S + rule_ops / PEAK_F64_PLAIN_S) * 1e3
+    all_pairs = max(t_bytes, b * h * w * k * CA_PAIR_OPS / PEAK_F32_S * 1e3)
+    return (max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations",
+            all_pairs, n_bytes / 1e6, pair_ops / 1e9)
+
+
+def center_argmin_report(case, args, smi, parent, plain=False):
+    """One case: the kernel against the plain version (exact), its time,
+    the parent kernel's time in this run, the kept share from the kernel's
+    counter and from center_candidates_reference, and the bound of this
+    data. Returns (max |index diff|, kernel ms, plain ms or None, bound ms,
+    bound_by)."""
+    kept = torch.zeros(1, dtype=torch.int64, device=DEVICE)
+    got = center_argmin(*args, kept_pairs=kept)
+    want = center_argmin_reference(*args)
+    torch.cuda.synchronize()
+    max_err = float((got - want).abs().max())
+    b, h, w = args[0].shape
+    k = args[2].shape[1]
+    if not torch.equal(got, want):
+        raise AssertionError(
+            f"center_argmin case {case}: kernel disagrees with the plain "
+            f"version on {int((got != want).sum())} pixels (max |index diff| "
+            f"{max_err})")
+    mask = center_candidates_reference(*(t.cpu() for t in args))
+    share = int(kept) / mask.numel()
+    ref_share = float(mask.float().mean())
+    if int(kept) != int(mask.sum()):
+        raise AssertionError(f"center_argmin case {case}: the kernel kept "
+                             f"{int(kept)} (tile, center) pairs, the rule "
+                             f"{int(mask.sum())}")
+    ms = cuda_ms(lambda: center_argmin(*args), iters=200)
+    plain_ms = (cuda_ms(lambda: center_argmin_reference(*args), iters=10)
+                if plain else None)
+    if parent is None:
+        parent_txt = "parent kernel not given"
+    else:
+        out = torch.empty_like(got)
+        if not torch.equal(parent(*args, out), want):
+            raise AssertionError(f"parent center_argmin case {case} differs")
+        parent_txt = (f"parent kernel "
+                      f"{cuda_ms(lambda: parent(*args, out), iters=200):.4f} "
+                      f"ms")
+    t_bound, by, all_pairs, mb, gops = center_argmin_bound(args, mask)
+    log(f"[kernel] center_argmin case {case} [{b},{h},{w}] K={k}: exact "
+        f"(max |index diff| {max_err}); kernel {ms:.4f} ms, {parent_txt}"
+        + (f", plain {plain_ms:.4f} ms" if plain else "")
+        + f"; kept share {share:.4f} of {mask.numel()} (tile, center) pairs "
+        f"(kernel's counter), {ref_share:.4f} (center_candidates_reference)"
+        f"; bound {t_bound:.4f} ms ({by}: {mb:.1f} MB, {gops:.3f} G f32 ops "
+        f"of kept pairs), all-pairs bound {all_pairs:.4f} ms; {smi}")
+    return max_err, ms, plain_ms, t_bound, by
+
+
+def phase_kernels(smi, parent=None):
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    cases = center_argmin_cases(gen)
+    max_err, ms, plain_ms, t_bound, by = center_argmin_report(
+        "A", cases.pop("A"), smi, parent, plain=True)
+    for case, args in cases.items():
+        center_argmin_report(case, args, smi, parent)
     row = dict(
         name="center_argmin", route="cuda",
         source="mgnet_tpu_torch/ops/csrc/center_argmin.cu",
         replaces="mgnet_tpu/ops/pallas/center_argmin.py:122",
         launches=None, max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-        bound_ms=max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes > t_ops else "operations",
-        library_ms=None,
+        bound_ms=t_bound, bound_by=by, library_ms=None,
     )
-    log(f"[kernel] center_argmin [{b},{h},{w}] K={k}: exact "
-        f"(max |index diff| {max_err}); kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
-        f"({row['bound_by']}: {n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.2f} "
-        f"G f32 ops); no single PyTorch call computes it; {smi}")
+    log("[kernel] center_argmin: no single PyTorch call computes it")
     return [row]
 
 
@@ -633,7 +758,20 @@ def request(i: int, h: int, w: int, device):
     return image, K_, height
 
 
-def phase_slice(smi):
+def plain_panoptic(out, pp, argmin):
+    """Panoptic fusion of a frame's head outputs, clustered by ``argmin``
+    (the plain version, or a function that calls it)."""
+    with torch.inference_mode():
+        return panoptic_fusion(
+            out["sem_seg"], out["center"], out["offset"],
+            num_classes=pp.num_classes, last_stuff_id=pp.last_stuff_id,
+            label_divisor=pp.label_divisor, stuff_area=pp.stuff_area,
+            void_label=-1, threshold=pp.center_threshold,
+            nms_kernel=pp.nms_kernel, max_instances=pp.max_instances,
+            argmin=argmin)
+
+
+def phase_slice(smi, parent=None):
     cfg = slice_config("bfloat16")
     fused, statics, model = build_slice(cfg, DEVICE)
     requests = [request(i, H, W, DEVICE) for i in range(3)]
@@ -657,6 +795,12 @@ def phase_slice(smi):
                   depth=((1, H, W), torch.float32),
                   points=((1, H, W, 3), torch.float32))
     pp = statics
+    captured = []
+
+    def plain_argmin(*args):
+        captured.append(args)
+        return center_argmin_reference(*args)
+
     for i, out in enumerate(outs):
         for key, (shape, dtype) in shapes.items():
             got = (tuple(out[key].shape), out[key].dtype)
@@ -677,14 +821,7 @@ def phase_slice(smi):
         n_valid = int(valid.sum())
         if n_valid < 1:
             raise AssertionError(f"request {i}: no valid instance center")
-        with torch.inference_mode():
-            plain = panoptic_fusion(
-                out["sem_seg"], out["center"], out["offset"],
-                num_classes=pp.num_classes, last_stuff_id=pp.last_stuff_id,
-                label_divisor=pp.label_divisor, stuff_area=pp.stuff_area,
-                void_label=-1, threshold=pp.center_threshold,
-                nms_kernel=pp.nms_kernel, max_instances=pp.max_instances,
-                argmin=center_argmin_reference)
+        plain = plain_panoptic(out, pp, plain_argmin)
         if not torch.equal(plain, pan):
             raise AssertionError(
                 f"request {i}: panoptic differs from the plain clustering "
@@ -696,6 +833,7 @@ def phase_slice(smi):
             f"{n_inst}, ground share {ground:.4f}, filtered share "
             f"{float(filtered.float().mean()):.4f}, depth median "
             f"{float(depth_ok.median()):.4f}; panoptic == plain clustering")
+    center_argmin_report("B", captured[0], smi, parent)
 
     img, K_, height = requests[0]
     for _ in range(10):
@@ -794,13 +932,20 @@ def phase_cpu_vs_card():
 def main() -> int:
     import mgnet_tpu_torch
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent-center-argmin", type=Path, default=None,
+                    help="an earlier center_argmin.cu to time beside the "
+                         "kernel on every center_argmin case")
+    opts = ap.parse_args()
     if Path(mgnet_tpu_torch.__file__).resolve().parent.parent != ROOT:
         raise SystemExit(f"chip_smoke: mgnet_tpu_torch must come from {ROOT}")
     name, count, smi = phase_device()
     phase_build()
-    rows = phase_kernels(smi) + phase_train_kernels(smi)
+    parent = (None if opts.parent_center_argmin is None
+              else load_parent_center_argmin(opts.parent_center_argmin))
+    rows = phase_kernels(smi, parent) + phase_train_kernels(smi)
     phase_cpu_vs_card()
-    rows[0]["launches"] = phase_slice(smi)
+    rows[0]["launches"] = phase_slice(smi, parent)
     phase_cpu_vs_card_train()
     reset_counts()
     launches = phase_train(smi)

@@ -111,7 +111,8 @@ def load_library() -> ctypes.CDLL:
     vp, ll = ctypes.c_void_p, ctypes.c_longlong
     i32, f32 = ctypes.c_int, ctypes.c_float
     signatures = {
-        "mgnet_center_argmin": [vp, vp, vp, vp, vp, vp, ll, ll, i32, vp],
+        "mgnet_center_argmin": [vp, vp, vp, vp, vp, vp, ll, i32, i32, i32,
+                                vp, vp],
         "mgnet_warp_bilinear": [vp, vp, vp, vp, vp, ll, i32, i32, i32, ll,
                                 vp],
         "mgnet_ssim_residual_fwd": [vp, vp, vp, ll, i32, i32, i32,

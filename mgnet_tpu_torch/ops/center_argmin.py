@@ -4,10 +4,11 @@ panoptic fusion.
 ``center_argmin`` launches the hand-written CUDA kernel
 ``csrc/center_argmin.cu`` (it replaces the TPU kernel
 ``mgnet_tpu/ops/pallas/center_argmin.py:63-133``; the source states its
-bound and design). ``center_argmin_reference`` is the plain PyTorch
-version of the same function: the wrapper uses it for CPU tensors, and
-tests and ``chip_smoke.py`` hold the kernel against it. A CUDA tensor
-always goes to the kernel; anything the kernel does not take raises.
+bound, design and the proof that its pruning is exact).
+``center_argmin_reference`` is the plain PyTorch version of the same
+function: the wrapper uses it for CPU tensors, and tests and
+``chip_smoke.py`` hold the kernel against it. A CUDA tensor always goes to
+the kernel; anything the kernel does not take raises.
 
 Both compute, for pixel (py, px) and centers k,
 
@@ -17,6 +18,11 @@ the expanded form of argmin_k |p - c_k|^2, with a running (best, index)
 pair and a strict ``<``, so ties go to the lowest k. ``center_inputs``
 turns (centers, valid) into (cy, cx, c2) as the TPU wrapper does: invalid
 centers become the 1e12 sentinel and c2 is clamped to 1e30.
+
+The kernel scans, for each ``TILE_H x TILE_W`` pixel tile, only the
+centers that can win a pixel of it. ``center_candidates_reference`` is the
+plain model of that rule (the same f64 formulas in the same order); tests
+and ``chip_smoke.py`` use it, the main path does not.
 """
 
 from __future__ import annotations
@@ -26,11 +32,20 @@ import torch
 from mgnet_tpu_torch.ops._build import load_library
 
 __all__ = ["center_argmin", "center_argmin_reference", "center_inputs",
-           "MAX_CENTERS"]
+           "center_candidates_reference", "MAX_CENTERS", "TILE_H", "TILE_W"]
 
-# 3 x K f32 centers must fit the default 48 KB of shared memory a block
+# the kernel walks the centers kThreads at a time, so K has no shared-memory
+# limit; 4096 is the largest K it is tested at
 MAX_CENTERS = 4096
 _MAX_BATCH = 65535  # gridDim.z
+_MAX_TILE_ROWS = 65535  # gridDim.y
+# the kernel's pixel tile (CENTER_TILE_H, CENTER_TILE_W in the source)
+TILE_H, TILE_W = 32, 32
+# the rule's constants (csrc/center_argmin.cu: kMarginRel, kMarginAbs,
+# kEligibleCap)
+_MARGIN_REL = 2.0 ** -20
+_MARGIN_ABS = 2.0 ** -140
+_ELIGIBLE_CAP = 2.0 ** 120
 
 
 def center_inputs(centers_yx: torch.Tensor, valid: torch.Tensor):
@@ -59,6 +74,65 @@ def center_argmin_reference(py, px, cy, cx, c2) -> torch.Tensor:
     return besti
 
 
+def _tiles(t: torch.Tensor, tile_h: int, tile_w: int, fill: float):
+    """[B, H, W] -> [B, nTy, nTx, tile_h * tile_w], padded with ``fill``."""
+    b, h, w = t.shape
+    nty, ntx = -(-h // tile_h), -(-w // tile_w)
+    t = torch.nn.functional.pad(t, (0, ntx * tile_w - w, 0, nty * tile_h - h),
+                                value=fill)
+    t = t.reshape(b, nty, tile_h, ntx, tile_w).permute(0, 1, 3, 2, 4)
+    return t.reshape(b, nty, ntx, tile_h * tile_w)
+
+
+def center_candidates_reference(py, px, cy, cx, c2, tile_h: int = TILE_H,
+                                tile_w: int = TILE_W) -> torch.Tensor:
+    """The kernel's per-tile candidate rule, in plain PyTorch f64.
+
+    py, px [B, H, W] f32; cy, cx, c2 [B, K] f32 -> [B, nTy, nTx, K] bool:
+    True where the kernel scans center k for the ``tile_h x tile_w`` tile
+    (ceil(H / tile_h) x ceil(W / tile_w) tiles, the last ones ragged). The
+    formulas, their order and the proof that a dropped center can neither
+    win nor tie a pixel of its tile are in csrc/center_argmin.cu.
+    """
+    inside = _tiles(torch.ones_like(py, dtype=torch.bool), tile_h, tile_w,
+                    False)
+    y = _tiles(py, tile_h, tile_w, 0.0)
+    x = _tiles(px, tile_h, tile_w, 0.0)
+    finite = (torch.isfinite(y) & torch.isfinite(x) | ~inside).all(-1)
+    inf = float("inf")
+    y0, y1, x0, x1 = (
+        v.double()[..., None] for v in (
+            torch.where(inside, y, inf).amin(-1),
+            torch.where(inside, y, -inf).amax(-1),
+            torch.where(inside, x, inf).amin(-1),
+            torch.where(inside, x, -inf).amax(-1)))
+    ay = torch.maximum(y0.abs(), y1.abs())
+    ax = torch.maximum(x0.abs(), x1.abs())
+    cyd, cxd, c2d = (t.double()[:, None, None, :] for t in (cy, cx, c2))
+    t = c2d.abs() + 2.0 * (ay * cyd.abs() + ax * cxd.abs())
+    eligible = (t <= _ELIGIBLE_CAP) & finite[..., None]
+    m = t * _MARGIN_REL + _MARGIN_ABS
+    dy = torch.maximum((y0 - cyd).abs(), (y1 - cyd).abs())
+    dx = torch.maximum((x0 - cxd).abs(), (x1 - cxd).abs())
+    delta = c2d - (cyd * cyd + cxd * cxd)
+    hi = ((dy * dy + dx * dx) + delta) + m
+    jstar = torch.where(eligible, hi, inf).argmin(-1, keepdim=True)
+    prune = eligible.any(-1, keepdim=True)
+
+    def at_j(v):
+        return torch.gather(v.expand_as(hi), -1, jstar)
+
+    j_y, j_x, j_2, j_m = at_j(cyd), at_j(cxd), at_j(c2d), at_j(m)
+    dcy = cyd - j_y
+    dcx = cxd - j_x
+    gy = torch.maximum(y0 * dcy, y1 * dcy)
+    gx = torch.maximum(x0 * dcx, x1 * dcx)
+    g = (c2d - j_2) - 2.0 * (gy + gx)
+    k_idx = torch.arange(cy.shape[1], device=py.device)
+    drop = prune & eligible & (k_idx != jstar) & (g > m + j_m)
+    return ~drop
+
+
 def _check(py, px, cy, cx, c2) -> None:
     tensors = dict(py=py, px=px, cy=cy, cx=cx, c2=c2)
     for name, t in tensors.items():
@@ -79,12 +153,17 @@ def _check(py, px, cy, cx, c2) -> None:
             f"{tuple(cy.shape)}, {tuple(cx.shape)}, {tuple(c2.shape)}")
 
 
-def center_argmin(py, px, cy, cx, c2) -> torch.Tensor:
+def center_argmin(py, px, cy, cx, c2, *,
+                  kept_pairs: torch.Tensor | None = None) -> torch.Tensor:
     """Nearest center index per pixel.
 
     Args:
         py, px: [B, H, W] f32 target coordinates (pixel + offset).
         cy, cx, c2: [B, K] f32 from ``center_inputs``.
+        kept_pairs: None, or a one-element int64 tensor on py's device, to
+            which the call adds the number of (tile, center) pairs the
+            kernel scans (for CPU tensors: the count that
+            ``center_candidates_reference`` keeps at the kernel's tile).
 
     Returns:
         [B, H, W] int32 indices in [0, K).
@@ -94,7 +173,16 @@ def center_argmin(py, px, cy, cx, c2) -> torch.Tensor:
     ``center_argmin_reference``.
     """
     _check(py, px, cy, cx, c2)
+    if kept_pairs is not None and (
+            kept_pairs.dtype != torch.int64 or kept_pairs.numel() != 1
+            or kept_pairs.device != py.device
+            or not kept_pairs.is_contiguous()):
+        raise ValueError("center_argmin: kept_pairs must be one contiguous "
+                         "int64 element on py's device")
     if py.device.type == "cpu":
+        if kept_pairs is not None:
+            kept_pairs += center_candidates_reference(py, px, cy, cx,
+                                                      c2).sum()
         return center_argmin_reference(py, px, cy, cx, c2)
     if py.device.type != "cuda":
         raise ValueError(f"center_argmin: unsupported device {py.device}")
@@ -104,6 +192,8 @@ def center_argmin(py, px, cy, cx, c2) -> torch.Tensor:
         raise ValueError(f"center_argmin: K={k} outside [1, {MAX_CENTERS}]")
     if b > _MAX_BATCH:
         raise ValueError(f"center_argmin: batch {b} > {_MAX_BATCH}")
+    if -(-h // TILE_H) > _MAX_TILE_ROWS or w >= 2**31:
+        raise ValueError(f"center_argmin: plane {h}x{w} too large")
     for name, t in dict(py=py, px=px, cy=cy, cx=cx, c2=c2).items():
         if not t.is_contiguous():
             raise ValueError(f"center_argmin: {name} must be contiguous")
@@ -113,7 +203,8 @@ def center_argmin(py, px, cy, cx, c2) -> torch.Tensor:
         stream = torch.cuda.current_stream(py.device).cuda_stream
         rc = lib.mgnet_center_argmin(
             py.data_ptr(), px.data_ptr(), cy.data_ptr(), cx.data_ptr(),
-            c2.data_ptr(), out.data_ptr(), b, h * w, k, stream)
+            c2.data_ptr(), out.data_ptr(), b, h, w, k,
+            None if kept_pairs is None else kept_pairs.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"center_argmin: kernel launch failed "
                            f"(cudaError {rc})")

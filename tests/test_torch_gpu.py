@@ -15,6 +15,7 @@ import torch
 from mgnet_tpu_torch.ops.center_argmin import (
     center_argmin,
     center_argmin_reference,
+    center_candidates_reference,
     center_inputs,
 )
 from mgnet_tpu_torch.ops.ssim import (
@@ -25,6 +26,7 @@ from mgnet_tpu_torch.ops.ssim import (
     ssim_residual_reference,
 )
 from mgnet_tpu_torch.ops.warp import warp_bilinear, warp_bilinear_reference
+from torch_center_cases import CASES, center_case, misaligned  # tests/ on path
 
 
 def _need_card():
@@ -49,9 +51,13 @@ def _center_case(b, h, w, k, seed=0):
     return [t.cuda() for t in (py, px, *center_inputs(centers, valid))]
 
 
+# the frame's shape; small and degenerate planes; KITTI's serving shape
+# (configs/MGNet-KITTI-Eigen-Zhou.yaml); one row and one column past the
+# 32 x 32 tile, two images; MAX_CENTERS
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,h,w,k", [(1, 1024, 2048, 128), (3, 37, 53, 5),
-                                     (2, 8, 12, 1)])
+                                     (2, 8, 12, 1), (1, 384, 1280, 128),
+                                     (2, 33, 65, 128), (1, 64, 96, 4096)])
 def test_center_argmin_kernel_matches_plain_version(b, h, w, k):
     _need_card()
     args = _center_case(b, h, w, k)
@@ -61,6 +67,45 @@ def test_center_argmin_kernel_matches_plain_version(b, h, w, k):
     assert center_argmin.launches == before + 1
     assert got.dtype == torch.int32 and got.shape == (b, h, w)
     assert torch.equal(got, center_argmin_reference(*args))
+
+
+# every input family of tests/torch_center_cases.py (targets scattered
+# over the image, all centers invalid, NaN and inf coordinates, 1e20
+# coordinates, c2 clamped, near-ties and the bisector of two centers near
+# (1000, 2000)), with the planes 16-byte aligned and one element off (the
+# scalar path); the scattered and instance-like targets at the frame's shape
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,shape,aligned", [
+    *((n, (2, 70, 136, 64), a) for n in CASES for a in (True, False)),
+    ("scattered", (1, 1024, 2048, 128), True),
+    ("instance", (1, 1024, 2048, 128), True)])
+def test_center_argmin_kernel_on_hard_inputs(name, shape, aligned):
+    _need_card()
+    args = [t.cuda() for t in center_case(name, *shape, seed=1)]
+    if not aligned:
+        args = misaligned(args)
+        assert args[0].data_ptr() % 16 != 0
+    before = center_argmin.launches
+    got = center_argmin(*args)
+    torch.cuda.synchronize()
+    assert center_argmin.launches == before + 1
+    assert torch.equal(got, center_argmin_reference(*args))
+
+
+@pytest.mark.gpu
+def test_center_argmin_kept_pairs_match_the_rule():
+    """The kernel's own count of scanned (tile, center) pairs equals what
+    center_candidates_reference keeps (the same f64 formulas, one rounding
+    each, on the CPU) on chip_smoke.py's case-A distribution."""
+    _need_card()
+    cpu_args = center_case("grid", 1, 256, 512, 128)
+    args = [t.cuda() for t in cpu_args]
+    kept = torch.zeros(1, dtype=torch.int64, device="cuda")
+    got = center_argmin(*args, kept_pairs=kept)
+    torch.cuda.synchronize()
+    assert torch.equal(got, center_argmin_reference(*args))
+    mask = center_candidates_reference(*cpu_args)
+    assert int(kept) == int(mask.sum()) < mask.numel()
 
 
 def _warp_case(b, c, h, w, oh, ow, seed=0):
@@ -77,7 +122,8 @@ def _warp_case(b, c, h, w, oh, ow, seed=0):
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,c,h,w,oh,ow", [(4, 3, 1024, 1024, 1024, 1024),
                                            (2, 3, 37, 53, 37, 53),
-                                           (1, 1, 5, 7, 9, 4)])
+                                           (1, 1, 5, 7, 9, 4),
+                                           (2, 3, 384, 1280, 384, 1280)])
 def test_warp_kernel_matches_plain_version(b, c, h, w, oh, ow):
     _need_card()
     image, coords = _warp_case(b, c, h, w, oh, ow)
