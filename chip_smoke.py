@@ -44,7 +44,27 @@ Phases, each printing its findings:
      kernel launches of every step (warp 6, SSIM forward 8, SSIM
      backward 6), step ms, images/s, peak memory, and the profiler's
      busy share;
-  7. a JSON line of kernel numbers, nvidia-smi's line, and as the last line
+  7. the shipped configs/*.yaml, each read by the port's load_config:
+     VideoSequence checked to differ from Fine in DATASETS.TRAIN only;
+     training steps at the recipe's batch of 12 (2 warmup, 3 timed, as in
+     6, launches checked against what each configuration implies): Fine
+     at 1024x1024 in one pass, as 3 x 4 (GRAD_ACCUM_STEPS 3) and under
+     MODEL.REMAT, the Cityscapes pseudo-label (panoptic-only) model, which
+     must launch no warp or SSIM kernel, and KITTI-Eigen-Zhou at its
+     uncropped 384x1280 with 19 classes; after the timed steps of each
+     configuration with depth, one more step with the inputs and outputs
+     of the last warp, SSIM forward and SSIM backward call kept (under
+     REMAT the backward's recompute, under accumulation the last
+     micro-batch), each held against its plain version bit for bit;
+     the fused frames of
+     KITTI-Eigen-Zhou at 384x1280 and of both pseudo-label configs
+     (panoptic only) at 1024x2048 and 384x1280, each with one
+     center_argmin launch, checked outputs and panoptic held against the
+     plain clustering, and its steady time; one f32 step on the card
+     against the CPU with GRAD_ACCUM_STEPS 2, REMAT, SGD, FREEZE_AT 2 and
+     WarmupCosineLR (batch 4, 128x256), held to phase 5's bars;
+  8. a JSON line of kernel numbers (with each path's launches), the total
+     elapsed seconds, nvidia-smi's line, and as the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failure raises and the script exits non-zero without the last line.
@@ -58,6 +78,7 @@ import time
 T_START = time.perf_counter()  # elapsed seconds include the imports
 
 import argparse
+import contextlib
 import ctypes
 import itertools
 import json
@@ -70,8 +91,15 @@ import torch
 
 import torch.nn.functional as F
 
-from mgnet_tpu_torch.config import apply_cityscapes_fine, get_default_config
+import mgnet_tpu_torch.geometry.image as geometry_image
+import mgnet_tpu_torch.ops.ssim as ops_ssim
+from mgnet_tpu_torch.config import (
+    apply_cityscapes_fine,
+    get_default_config,
+    load_config,
+)
 from mgnet_tpu_torch.data import (
+    CITYSCAPES_CATEGORIES,
     CITYSCAPES_SCENE_SEG_CATEGORIES,
     Metadata,
     build_meta,
@@ -110,11 +138,16 @@ H, W, K = 1024, 2048, 128
 # defaults; the recipe's global batch is 12)
 TB, TH, TW = 4, 1024, 1024
 TRAIN_WARMUP, TRAIN_STEPS = 2, 5
-# kernel launches of one training step: the warp per context frame and
-# scale (2 x 3), the SSIM forward per candidate (2 x (3 warped + 1
-# unwarped)), its backward per warped candidate (2 x 3)
-TRAIN_LAUNCHES = {"warp_bilinear": 6, "ssim_residual_fwd": 8,
-                  "ssim_residual_bwd": 6}
+# the config phase: the shipped YAML files, the recipe's batch of 12 (the
+# reference's global batch), Cityscapes' 1024x1024 crops and KITTI's
+# uncropped 384x1280 frames; the frames at Cityscapes' 1024x2048
+CONFIG_DIR = ROOT / "configs"
+CFG_BATCH = 12
+CFG_WARMUP, CFG_STEPS = 2, 3
+KH, KW = 384, 1280
+FRAME_WARMUP, FRAME_ITERS = 5, 20
+# the f32 card-vs-CPU step with the config phase's options
+SMALL_B, SMALL_H, SMALL_W = 4, 128, 256
 SEED = 0
 DEVICE = "cuda"
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 FLOP/s (an
@@ -190,13 +223,13 @@ def bound(n_bytes: float, n_ops: float):
     return max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
 
 
-def compare(name, got, want, atol):
+def compare(name, got, want, atol, tag="kernel"):
     """Max |got - want| and the count of differing elements; raises above
     ``atol`` (0 = bit for bit)."""
     diff = (got - want).abs()
     err = float(diff.max())
     n_diff = int((got != want).sum())
-    log(f"[kernel]   {name}: max |diff| {err:.3e}, {n_diff} of "
+    log(f"[{tag}]   {name}: max |diff| {err:.3e}, {n_diff} of "
         f"{got.numel()} elements differ (bar {atol:.1e})")
     if not err <= atol:
         raise AssertionError(f"{name}: kernel disagrees with its plain "
@@ -565,8 +598,10 @@ def build_train(cfg, device):
     model = build_model(cfg, device="cpu", for_training=True)
     init_random_(model, torch.Generator().manual_seed(SEED))
     npz = np.load(ROOT / "weights" / "imagenet_weights.npz")
-    for prefix, module in (("backbone/", model.backbone),
-                           ("pose_net/encoder/", model.pose_net.encoder)):
+    encoders = [("backbone/", model.backbone)]
+    if hasattr(model, "pose_net"):
+        encoders.append(("pose_net/encoder/", model.pose_net.encoder))
+    for prefix, module in encoders:
         flat = {k[len(prefix):]: npz[k] for k in npz.files
                 if k.startswith(prefix)}
         module.load_state_dict(load_jax_params(flat, module))
@@ -574,8 +609,11 @@ def build_train(cfg, device):
     return create_train_state(cfg, model)
 
 
-def train_batch(b, h, w, device):
-    batch = synthetic_train_batch(b, h, w, seed=SEED)
+def train_batch(b, h, w, device, num_classes=20):
+    """The seeded synthetic batch on ``device``: classes 0-10 stuff, the
+    rest of ``num_classes`` things."""
+    batch = synthetic_train_batch(b, h, w, num_classes=num_classes,
+                                  last_stuff_id=10, seed=SEED)
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in batch.items()}
 
@@ -592,27 +630,123 @@ def reset_counts():
     ssim_residual_bwd.launches = 0
 
 
-def phase_train(smi):
-    """The joint training step at full width on the card."""
-    cfg = train_config("bfloat16")
-    t0 = time.perf_counter()
-    state = build_train(cfg, DEVICE)
-    batch = train_batch(TB, TH, TW, DEVICE)
+def expected_launches(cfg):
+    """Kernel launches one training step of ``cfg`` implies: per
+    micro-batch, with depth, the warp per context frame and scale (2 x 3),
+    the SSIM forward per candidate (2 x (3 warped + 1 unwarped with
+    automasking)), its backward per warped candidate (2 x 3); MODEL.REMAT
+    runs the photometric loss's forward again in the backward. None
+    without depth."""
+    if not cfg.WITH_DEPTH:
+        return dict.fromkeys(counts(), 0)
+    dh = cfg.MODEL.DEPTH_HEAD
+    warped = 2 * (3 if dh.MSC_LOSS else 1)
+    fwd = warped + 2 * int(dh.AUTOMASK_LOSS)
+    k = max(1, int(cfg.SOLVER.GRAD_ACCUM_STEPS))
+    r = 2 if cfg.MODEL.REMAT else 1
+    return {"warp_bilinear": k * r * warped,
+            "ssim_residual_fwd": k * r * fwd,
+            "ssim_residual_bwd": k * warped}
+
+
+@contextlib.contextmanager
+def last_kernel_calls():
+    """Within the block, the training step's calls of the warp and SSIM
+    wrappers go through the wrappers unchanged (and count as launches),
+    and the last call of each is kept, cloned:
+    {name: [calls so far, inputs, outputs]}."""
+    sites = {"warp_bilinear": (geometry_image, "warp_bilinear"),
+             "ssim_residual_fwd": (ops_ssim, "ssim_residual_fwd"),
+             "ssim_residual_bwd": (ops_ssim, "ssim_residual_bwd")}
+    kept = {}
+
+    def clone(v):
+        if isinstance(v, tuple):
+            return tuple(clone(x) for x in v)
+        return v.clone() if isinstance(v, torch.Tensor) else v
+
+    def keeping(name, fn):
+        def call(*args):
+            out = fn(*args)
+            n = kept[name][0] + 1 if name in kept else 1
+            kept[name] = [n, clone(args), clone(out)]
+            return out
+        # a wrapper counts its launch through its module's global name,
+        # which is now this function for the SSIM wrappers
+        call.launches = 0
+        return call
+
+    wrappers = {name: getattr(mod, attr)
+                for name, (mod, attr) in sites.items()}
+    keepers = {name: keeping(name, fn) for name, fn in wrappers.items()}
+    for name, (mod, attr) in sites.items():
+        setattr(mod, attr, keepers[name])
+    try:
+        yield kept
+    finally:
+        for name, (mod, attr) in sites.items():
+            setattr(mod, attr, wrappers[name])
+            wrappers[name].launches += keepers[name].launches
+
+
+def check_step_kernels(tag, cfg, state, batch):
+    """One more (untimed) step of ``cfg`` with the last call of each
+    training kernel kept (under MODEL.REMAT the warp's and the SSIM
+    forward's last calls are the backward's recompute; under accumulation
+    they are the last micro-batch's): each kernel's outputs held against
+    its plain version on the same inputs, bit for bit."""
+    want = expected_launches(cfg)
+    with last_kernel_calls() as kept:
+        make_train_step(cfg)(state, batch)
+        torch.cuda.synchronize()
+    calls = {name: kept[name][0] if name in kept else 0 for name in want}
+    if calls != want:
+        raise AssertionError(f"{tag}: the kept calls {calls} are not the "
+                             f"step's launches {want}")
+    n, (image, coords, with_grads), got = kept["warp_bilinear"]
+    ref = warp_bilinear_reference(image, coords, with_grads)
+    b, c, h, w = image.shape
+    log(f"[{tag}-kernels] warp_bilinear call {n} of {want['warp_bilinear']}"
+        f" [{b},{c},{h},{w}], coords {list(coords.shape)}:")
+    for name, g, r in zip(("out", "gx", "gy"), got, ref):
+        if (g is None) != (r is None):
+            raise AssertionError(f"{tag}: warp {name} is {g} against {r}")
+        if g is not None:
+            compare(name, g, r, 0.0, tag=f"{tag}-kernels")
+    n, (x, y, weight), got = kept["ssim_residual_fwd"]
+    log(f"[{tag}-kernels] ssim_residual_fwd call {n} of "
+        f"{want['ssim_residual_fwd']} {list(x.shape)}:")
+    compare("residual", got, ssim_residual_reference(x, y, weight), 0.0,
+            tag=f"{tag}-kernels")
+    n, (x, y, g, weight), got = kept["ssim_residual_bwd"]
+    log(f"[{tag}-kernels] ssim_residual_bwd call {n} of "
+        f"{want['ssim_residual_bwd']} {list(x.shape)}:")
+    ref = ssim_residual_bwd_reference(x, y, g, weight)
+    compare("dx", got[0], ref[0], 0.0, tag=f"{tag}-kernels")
+    compare("dy", got[1], ref[1], 0.0, tag=f"{tag}-kernels")
+    del kept
+    torch.cuda.empty_cache()
+
+
+def train_steps(tag, cfg, state, batch, warmup, steps, smi):
+    """``warmup`` then ``steps`` timed training steps of ``cfg``: every loss
+    printed and checked finite, every step's kernel launches checked
+    against expected_launches(cfg). The counts are set to 0 after the
+    warmup. Returns (the timed steps' launches, mean ms/step, peak GiB)."""
     step = make_train_step(cfg)
-    torch.cuda.synchronize()
-    log(f"[train] Cityscapes-Fine recipe, bf16, batch {TB} of {TH}x{TW}: "
-        f"{sum(p.numel() for p in state.params.parameters()) / 1e6:.2f} M "
-        f"parameters, set-up {time.perf_counter() - t0:.1f} s")
-    for i in range(TRAIN_WARMUP):
+    want = expected_launches(cfg)
+    b = batch["image"].shape[0]
+    for i in range(warmup):
         t0 = time.perf_counter()
         _, m = step(state, batch)
         torch.cuda.synchronize()
-        log(f"[train] warmup step {i}: {(time.perf_counter() - t0) * 1e3:.1f}"
-            f" ms, loss_total {float(m['loss_total']):.5f}")
+        log(f"[{tag}] warmup step {i}: "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms, loss_total "
+            f"{float(m['loss_total']):.5f}")
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     step_ms = []
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         before = counts()
         t0 = time.perf_counter()
         _, m = step(state, batch)
@@ -621,25 +755,40 @@ def phase_train(smi):
         launched = {k: v - before[k] for k, v in counts().items()}
         losses = {k: float(v) for k, v in m.items()}
         bad = [k for k, v in losses.items() if not np.isfinite(v)]
-        log(f"[train] step {i}: {step_ms[-1]:.1f} ms, launches {launched}, "
+        log(f"[{tag}] step {i}: {step_ms[-1]:.1f} ms, launches {launched}, "
             f"losses " + ", ".join(f"{k} {v:.6g}" for k, v in losses.items()))
         if bad:
-            raise AssertionError(f"step {i}: non-finite {bad}")
-        if launched != TRAIN_LAUNCHES:
-            raise AssertionError(f"step {i}: kernel launches {launched}, "
-                                 f"expected {TRAIN_LAUNCHES}")
+            raise AssertionError(f"{tag} step {i}: non-finite {bad}")
+        if launched != want:
+            raise AssertionError(f"{tag} step {i}: kernel launches "
+                                 f"{launched}, expected {want}")
     launches = counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     mean = float(np.mean(step_ms))
-    log(f"[train] {TRAIN_STEPS} steps after {TRAIN_WARMUP} warmup: "
+    log(f"[{tag}] {steps} steps after {warmup} warmup: "
         f"{mean:.1f} ms/step (min {min(step_ms):.1f}, max "
-        f"{max(step_ms):.1f}), {TB * 1e3 / mean:.2f} images/s; peak "
-        f"allocated {peak:.3f} GiB; {smi}")
-    train_breakdown(state, step, batch)
+        f"{max(step_ms):.1f}), {b * 1e3 / mean:.2f} images/s; peak "
+        f"allocated {peak:.3f} GiB; launches per step {want}; {smi}")
+    return launches, mean, peak
+
+
+def phase_train(smi):
+    """The joint training step at full width on the card."""
+    cfg = train_config("bfloat16")
+    t0 = time.perf_counter()
+    state = build_train(cfg, DEVICE)
+    batch = train_batch(TB, TH, TW, DEVICE)
+    torch.cuda.synchronize()
+    log(f"[train] Cityscapes-Fine recipe, bf16, batch {TB} of {TH}x{TW}: "
+        f"{sum(p.numel() for p in state.params.parameters()) / 1e6:.2f} M "
+        f"parameters, set-up {time.perf_counter() - t0:.1f} s")
+    launches, _, _ = train_steps("train", cfg, state, batch, TRAIN_WARMUP,
+                                 TRAIN_STEPS, smi)
+    train_breakdown(state, make_train_step(cfg), batch)
     return launches
 
 
-def train_breakdown(state, step, batch):
+def train_breakdown(state, step, batch, tag="train"):
     """The profiler's device time by kernel over 2 steps, against their wall
     time: the device's busy and idle share."""
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -655,12 +804,12 @@ def train_breakdown(state, step, batch):
     rows = [(e.self_device_time_total / 1e3 / n, e.count / n, e.key)
             for e in prof.key_averages() if e.device_type == cuda]
     busy = sum(r[0] for r in rows)
-    log(f"[train-breakdown] profiler: kernels busy {busy:.1f} of "
+    log(f"[{tag}-breakdown] profiler: kernels busy {busy:.1f} of "
         f"{wall_ms:.1f} ms/step wall under the profiler (idle share "
         f"{1 - busy / wall_ms:.3f}); {sum(r[1] for r in rows):.0f} kernel "
         f"launches/step; top kernels:")
     for dev_ms, count, key in sorted(rows, reverse=True)[:15]:
-        log(f"[train-breakdown]   {dev_ms:8.3f} ms/step  x{count:6.1f}  "
+        log(f"[{tag}-breakdown]   {dev_ms:8.3f} ms/step  x{count:6.1f}  "
             f"{key[:90]}")
 
 
@@ -672,11 +821,12 @@ def cosine_distance(a: torch.Tensor, b: torch.Tensor) -> float:
     return 1.0 - float(a @ b) / den
 
 
-def phase_cpu_vs_card_train():
+def phase_cpu_vs_card_train(cfg=None, b=2, h=128, w=256,
+                            tag="cpu-vs-card-train"):
     """One f32 training step on the card against the same step on the CPU
-    (plain versions there), batch 2 at 128x256, same weights and batch."""
-    cfg = train_config("float32")
-    b, h, w = 2, 128, 256
+    (plain versions there), same weights and batch: by default the
+    Fine recipe at batch 2 of 128x256."""
+    cfg = train_config("float32") if cfg is None else cfg
     results = {}
     for device in ("cpu", DEVICE):
         state = build_train(cfg, device)
@@ -695,9 +845,9 @@ def phase_cpu_vs_card_train():
     worst = max(dists, key=dists.get)
     worst_norm = max(norms, key=norms.get)
     median = float(np.median(list(dists.values())))
-    log(f"[cpu-vs-card-train] f32 step at {b}x{h}x{w}: losses "
+    log(f"[{tag}] f32 step at {b}x{h}x{w}: losses "
         + ", ".join(f"{k} {m_cpu[k]:.6g}/{m_card[k]:.6g}" for k in m_cpu))
-    log(f"[cpu-vs-card-train] max rel loss diff "
+    log(f"[{tag}] max rel loss diff "
         f"{max(loss_rel.values()):.2e} ({max(loss_rel, key=loss_rel.get)}); "
         f"global gradient norm rel diff {rel['grad_norm']:.2e}; gradient "
         f"cosine distance over {len(dists)} tensors: worst "
@@ -716,11 +866,13 @@ def phase_cpu_vs_card_train():
         raise AssertionError("card and CPU gradients disagree")
 
 
-def build_slice(cfg, device, road_class_id=None):
-    """Model and fused frame on ``device``. Weights are drawn on the CPU
-    (so every device gets the same ones): backbone from the ImageNet npz,
-    GCM and heads from a seeded generator. ``road_class_id`` overrides the
-    panoptic id that DGC takes as the ground."""
+def build_slice(cfg, device, road_class_id=None,
+                categories=CITYSCAPES_SCENE_SEG_CATEGORIES):
+    """Model and fused frame of ``cfg``'s task branches on ``device``.
+    Weights are drawn on the CPU (so every device gets the same ones):
+    backbone from the ImageNet npz, GCM and heads from a seeded generator.
+    ``road_class_id`` overrides the panoptic id that DGC takes as the
+    ground."""
     model = build_model(cfg, device="cpu")
     init_random_(model, torch.Generator().manual_seed(SEED))
     npz = np.load(ROOT / "weights" / "imagenet_weights.npz")
@@ -728,8 +880,7 @@ def build_slice(cfg, device, road_class_id=None):
             if k.startswith("backbone/")}
     model.backbone.load_state_dict(load_jax_params(flat, model.backbone))
     model.to(device)
-    meta = Metadata(name="cityscapes_scene_seg").set(
-        **build_meta(CITYSCAPES_SCENE_SEG_CATEGORIES))
+    meta = Metadata(name="cityscapes").set(**build_meta(categories))
     statics = statics_from_meta(cfg, meta)
     if road_class_id is not None:
         statics = statics._replace(road_class_id=road_class_id)
@@ -771,6 +922,66 @@ def plain_panoptic(out, pp, argmin):
             argmin=argmin)
 
 
+def frame_shapes(cfg, h, w):
+    """The frame's outputs for ``cfg``'s branches, with a camera: shape and
+    dtype by key."""
+    shapes = {}
+    if cfg.WITH_PANOPTIC:
+        shapes.update(sem_seg=((1, h, w), torch.int32),
+                      panoptic=((1, h, w), torch.int32),
+                      center=((1, h, w), torch.float32),
+                      offset=((1, h, w, 2), torch.float32))
+    if cfg.WITH_DEPTH:
+        shapes.update(depth=((1, h, w), torch.float32),
+                      points=((1, h, w, 3), torch.float32))
+    return shapes
+
+
+def check_frame(what, out, pp, shapes, captured):
+    """One frame's outputs: keys, shapes and dtypes; finite depth and points
+    where not filtered; at least one valid instance center; panoptic equal
+    to the plain clustering on the same head outputs (whose inputs are
+    appended to ``captured``)."""
+    if set(out) != set(shapes):
+        raise AssertionError(f"{what}: keys {sorted(out)}, expected "
+                             f"{sorted(shapes)}")
+    for key, (shape, dtype) in shapes.items():
+        got = (tuple(out[key].shape), out[key].dtype)
+        if got != (shape, dtype):
+            raise AssertionError(f"{what}: {key} is {got}, expected "
+                                 f"{(shape, dtype)}")
+    pan = out["panoptic"]
+    filtered = torch.zeros_like(pan, dtype=torch.bool)
+    for cid in pp.depth_filter_ids:
+        filtered |= pan == cid
+    for key in ("depth", "points"):
+        if key in out and not torch.isfinite(out[key][~filtered]).all():
+            raise AssertionError(f"{what}: non-finite {key}")
+    _, valid, _ = find_instance_centers(
+        out["center"], pp.center_threshold, pp.nms_kernel, pp.max_instances)
+    n_valid = int(valid.sum())
+    if n_valid < 1:
+        raise AssertionError(f"{what}: no valid instance center")
+
+    def plain_argmin(*args):
+        captured.append(args)
+        return center_argmin_reference(*args)
+
+    plain = plain_panoptic(out, pp, plain_argmin)
+    if not torch.equal(plain, pan):
+        raise AssertionError(
+            f"{what}: panoptic differs from the plain clustering on "
+            f"{int((plain != pan).sum())} pixels")
+    n_inst = int(torch.unique(pan[pan % pp.label_divisor > 0]).numel())
+    ground = float((pan == pp.road_class_id).float().mean())
+    depth = (f", depth median {float(out['depth'][~filtered].median()):.4f}"
+             if "depth" in out else "")
+    log(f"[slice] {what}: valid centers {n_valid}, instances {n_inst}, "
+        f"ground share {ground:.4f}, filtered share "
+        f"{float(filtered.float().mean()):.4f}{depth}; panoptic == plain "
+        f"clustering")
+
+
 def phase_slice(smi, parent=None):
     cfg = slice_config("bfloat16")
     fused, statics, model = build_slice(cfg, DEVICE)
@@ -788,70 +999,35 @@ def phase_slice(smi, parent=None):
     if launches < 1:
         raise AssertionError("the main path did not launch center_argmin")
 
-    shapes = dict(sem_seg=((1, H, W), torch.int32),
-                  panoptic=((1, H, W), torch.int32),
-                  center=((1, H, W), torch.float32),
-                  offset=((1, H, W, 2), torch.float32),
-                  depth=((1, H, W), torch.float32),
-                  points=((1, H, W, 3), torch.float32))
-    pp = statics
     captured = []
-
-    def plain_argmin(*args):
-        captured.append(args)
-        return center_argmin_reference(*args)
-
     for i, out in enumerate(outs):
-        for key, (shape, dtype) in shapes.items():
-            got = (tuple(out[key].shape), out[key].dtype)
-            if got != (shape, dtype):
-                raise AssertionError(f"request {i}: {key} is {got}, "
-                                     f"expected {(shape, dtype)}")
-        pan = out["panoptic"]
-        filtered = torch.zeros_like(pan, dtype=torch.bool)
-        for cid in pp.depth_filter_ids:
-            filtered |= pan == cid
-        if not torch.isfinite(out["depth"][~filtered]).all():
-            raise AssertionError(f"request {i}: non-finite depth")
-        if not torch.isfinite(out["points"][~filtered]).all():
-            raise AssertionError(f"request {i}: non-finite points")
-        _, valid, _ = find_instance_centers(
-            out["center"], pp.center_threshold, pp.nms_kernel,
-            pp.max_instances)
-        n_valid = int(valid.sum())
-        if n_valid < 1:
-            raise AssertionError(f"request {i}: no valid instance center")
-        plain = plain_panoptic(out, pp, plain_argmin)
-        if not torch.equal(plain, pan):
-            raise AssertionError(
-                f"request {i}: panoptic differs from the plain clustering "
-                f"on {int((plain != pan).sum())} pixels")
-        n_inst = int(torch.unique(pan[pan % pp.label_divisor > 0]).numel())
-        ground = float((pan == pp.road_class_id).float().mean())
-        depth_ok = out["depth"][~filtered]
-        log(f"[slice] request {i}: valid centers {n_valid}, instances "
-            f"{n_inst}, ground share {ground:.4f}, filtered share "
-            f"{float(filtered.float().mean()):.4f}, depth median "
-            f"{float(depth_ok.median()):.4f}; panoptic == plain clustering")
+        check_frame(f"request {i}", out, statics, frame_shapes(cfg, H, W),
+                    captured)
     center_argmin_report("B", captured[0], smi, parent)
 
-    img, K_, height = requests[0]
-    for _ in range(10):
-        fused(img, K_, height)
+    steady_frame("slice", fused, requests[0], 10, 50, smi)
+    breakdown(fused, model, cfg, requests[0], smi)
+    return launches
+
+
+def steady_frame(tag, fused, req, warmup, n, smi):
+    """Host-clock time of the frame on one request, image on the card,
+    after ``warmup`` frames; peak memory over the ``n`` timed ones."""
+    for _ in range(warmup):
+        fused(*req)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    n = 50
     t0 = time.perf_counter()
     for _ in range(n):
-        fused(img, K_, height)
+        fused(*req)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / n * 1e3
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[slice] steady frame (1x{H}x{W}, bf16, image on the card): "
-        f"{ms:.3f} ms/frame, {1e3 / ms:.2f} fps over {n} frames after 10 "
-        f"warmup; peak allocated {peak:.3f} GiB; {smi}")
-    breakdown(fused, model, cfg, requests[0], smi)
-    return launches
+    _, h, w, _ = req[0].shape
+    log(f"[{tag}] steady frame (1x{h}x{w}, bf16, image on the card): "
+        f"{ms:.3f} ms/frame, {1e3 / ms:.2f} fps over {n} frames after "
+        f"{warmup} warmup; peak allocated {peak:.3f} GiB; {smi}")
+    return ms
 
 
 def breakdown(fused, model, cfg, req, smi):
@@ -929,6 +1105,128 @@ def phase_cpu_vs_card():
         raise AssertionError("card and CPU frames disagree")
 
 
+def shipped(name, *opts):
+    return load_config(str(CONFIG_DIR / name), list(opts))
+
+
+def config_train(tag, cfg, batch, smi, profile=False):
+    """The training step of ``cfg`` on ``batch``: set-up, then
+    train_steps, then with depth check_step_kernels, then with ``profile``
+    train_breakdown; frees the state after."""
+    t0 = time.perf_counter()
+    state = build_train(cfg, DEVICE)
+    torch.cuda.synchronize()
+    b, h, w, _ = batch["image"].shape
+    log(f"[{tag}] batch {b} of {h}x{w}, {cfg.MODEL.COMPUTE_DTYPE}, "
+        f"{cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES} classes, WITH_DEPTH "
+        f"{cfg.WITH_DEPTH}, GRAD_ACCUM_STEPS {cfg.SOLVER.GRAD_ACCUM_STEPS}, "
+        f"REMAT {cfg.MODEL.REMAT}, {cfg.SOLVER.OPTIMIZER}: "
+        f"{sum(p.numel() for p in state.params.parameters()) / 1e6:.2f} M "
+        f"parameters, set-up {time.perf_counter() - t0:.1f} s")
+    launches, _, _ = train_steps(tag, cfg, state, batch, CFG_WARMUP,
+                                 CFG_STEPS, smi)
+    if cfg.WITH_DEPTH:
+        check_step_kernels(tag, cfg, state, batch)
+    if profile:
+        train_breakdown(state, make_train_step(cfg), batch, tag)
+    del state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def config_frame(tag, cfg, categories, h, w, smi):
+    """The fused frame of ``cfg`` at 1 x h x w: one request with its
+    center_argmin launches counted (from 0) and its outputs checked, then
+    the steady frame time."""
+    fused, statics, _ = build_slice(cfg, DEVICE, categories=categories)
+    req = request(0, h, w, DEVICE)
+    torch.cuda.synchronize()
+    center_argmin.launches = 0
+    out = fused(*req)
+    torch.cuda.synchronize()
+    launches = center_argmin.launches
+    log(f"[{tag}] 1 request at {h}x{w} bf16, {statics.num_classes} classes, "
+        f"keys {sorted(out)}: center_argmin launches {launches}")
+    if launches != 1:
+        raise AssertionError(f"{tag}: center_argmin launched {launches} "
+                             f"times for one frame")
+    check_frame(tag, out, statics, frame_shapes(cfg, h, w), [])
+    steady_frame(tag, fused, req, FRAME_WARMUP, FRAME_ITERS, smi)
+    return launches
+
+
+def phase_configs(smi):
+    """Every shipped configs/*.yaml through the port's load_config, its
+    training step at the recipe's batch and its fused frame; returns the
+    training paths' launches by kernel and the frames' center_argmin
+    launches, each by path."""
+    trees = {p.name: load_config(str(p)).to_dict()
+             for p in sorted(CONFIG_DIR.glob("*.yaml"))}
+    log(f"[configs] loaded {len(trees)} files: {sorted(trees)}")
+    if len(trees) != 5:
+        raise AssertionError(f"expected the 5 shipped configs, got {trees}")
+
+    def flat(d, prefix=""):
+        out = {}
+        for k, v in d.items():
+            if isinstance(v, dict):
+                out.update(flat(v, prefix + k + "."))
+            else:
+                out[prefix + k] = v
+        return out
+
+    fine = flat(trees["MGNet-Cityscapes-Fine.yaml"])
+    video = flat(trees["MGNet-Cityscapes-VideoSequence.yaml"])
+    differ = sorted(k for k in fine if fine[k] != video[k])
+    log(f"[configs] VideoSequence differs from Fine in {differ}")
+    if differ != ["DATASETS.TRAIN"]:
+        raise AssertionError(f"VideoSequence differs from Fine in {differ}")
+
+    paths, frames = {}, {}
+    fine_name = "MGNet-Cityscapes-Fine.yaml"
+    crop = tuple(shipped(fine_name).INPUT.CROP.SIZE)
+    batch = train_batch(CFG_BATCH, *crop, DEVICE)
+    for tag, opts in (("fine-b12", ()),
+                      ("fine-b12-accum3", ("SOLVER.GRAD_ACCUM_STEPS", "3")),
+                      ("fine-b12-remat", ("MODEL.REMAT", "True"))):
+        paths[tag] = config_train(tag, shipped(fine_name, *opts), batch, smi,
+                                  profile=not opts)
+    pan_name = "MGNet-Cityscapes-PseudoLabelGeneration.yaml"
+    paths["panoptic-b12"] = config_train("panoptic-b12", shipped(pan_name),
+                                         batch, smi)
+    if any(paths["panoptic-b12"].values()):
+        raise AssertionError("the panoptic-only step launched a warp or "
+                             f"SSIM kernel: {paths['panoptic-b12']}")
+    del batch
+    kitti_name = "MGNet-KITTI-Eigen-Zhou.yaml"
+    kitti = shipped(kitti_name)
+    batch = train_batch(CFG_BATCH, KH, KW, DEVICE,
+                        num_classes=kitti.MODEL.SEM_SEG_HEAD.NUM_CLASSES)
+    paths["kitti-b12"] = config_train("kitti-b12", kitti, batch, smi)
+    del batch
+    torch.cuda.empty_cache()
+
+    # KITTI's 19 classes as mgnet_tpu/data/kitti.py registers them (the
+    # pseudo-label configs keep the 20 scene-seg classes)
+    frames["kitti-frame"] = config_frame(
+        "kitti-frame", kitti, CITYSCAPES_CATEGORIES, KH, KW, smi)
+    frames["panoptic-frame"] = config_frame(
+        "panoptic-frame", shipped(pan_name),
+        CITYSCAPES_SCENE_SEG_CATEGORIES, H, W, smi)
+    frames["kitti-panoptic-frame"] = config_frame(
+        "kitti-panoptic-frame",
+        shipped("MGNet-KITTI-Eigen-PseudoLabelGeneration.yaml"),
+        CITYSCAPES_SCENE_SEG_CATEGORIES, KH, KW, smi)
+
+    phase_cpu_vs_card_train(
+        shipped(fine_name, "MODEL.COMPUTE_DTYPE", "float32",
+                "SOLVER.GRAD_ACCUM_STEPS", "2", "MODEL.REMAT", "True",
+                "SOLVER.OPTIMIZER", "SGD", "MODEL.BACKBONE.FREEZE_AT", "2",
+                "SOLVER.LR_SCHEDULER_NAME", "WarmupCosineLR"),
+        SMALL_B, SMALL_H, SMALL_W, tag="cpu-vs-card-train-options")
+    return paths, frames
+
+
 def main() -> int:
     import mgnet_tpu_torch
 
@@ -954,6 +1252,12 @@ def main() -> int:
     for row in rows:
         if not row["launches"]:
             raise AssertionError(f"{row['name']}: no launch on its path")
+    train_paths, frame_paths = phase_configs(smi)
+    rows[0]["launches_by_path"] = {"serving": rows[0]["launches"],
+                                   **frame_paths}
+    for row in rows[1:]:
+        row["launches_by_path"] = {"train": row["launches"], **{
+            tag: n[row["name"]] for tag, n in train_paths.items()}}
     log(f"[done] elapsed {time.perf_counter() - T_START:.1f} s")
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -7,8 +7,14 @@ semantic argmax, panoptic fusion (with the ``center_argmin`` kernel on
 CUDA), inverse-depth upsample and ``inv2depth``, ``Camera.reconstruct``,
 the DGC rescale, and the depth filters.
 
-The output dict is the JAX function's: ``sem_seg``, ``panoptic``,
-``center``, ``offset``, ``depth``, ``points``.
+The output dict is the JAX function's, in each combination of its
+options: ``sem_seg``, ``panoptic``, ``center``, ``offset`` with
+``with_panoptic``; ``depth`` with ``with_depth``, filtered by the panoptic
+ids of ``depth_filter_ids`` only when the frame also has panoptic;
+``points`` only with depth, DGC (``statics.use_dgc``, from
+``POST_PROCESSING.USE_DGC_SCALING``), a camera matrix and
+``return_point_cloud``. Without DGC or without a camera the depth is the
+network's, unscaled.
 
 The float32 post-processing does no matmul or convolution (resizes go
 through ``F.interpolate``, the camera product is written out), so its
@@ -20,7 +26,7 @@ stack when it runs in float32.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -49,6 +55,7 @@ class PostprocessStatics(NamedTuple):
     max_instances: int = 128
     road_class_id: int = -1        # panoptic id (trainId * divisor)
     depth_filter_ids: Tuple[int, ...] = ()
+    use_dgc: bool = True
 
 
 def statics_from_meta(cfg, metadata) -> PostprocessStatics:
@@ -75,69 +82,109 @@ def statics_from_meta(cfg, metadata) -> PostprocessStatics:
         max_instances=pp.MAX_INSTANCES,
         road_class_id=(road * divisor) if road is not None else -1,
         depth_filter_ids=filter_ids,
+        use_dgc=pp.USE_DGC_SCALING,
     )
 
 
 def build_fused_inference(model, statics: PostprocessStatics,
-                          pixel_mean, pixel_std, device="cuda"):
+                          pixel_mean, pixel_std,
+                          with_panoptic: Optional[bool] = None,
+                          with_depth: Optional[bool] = None,
+                          return_point_cloud: bool = True, device="cuda"):
     """Build the fused frame for ``model`` (an eval-mode MGNet on
-    ``device``).
+    ``device``). ``with_panoptic`` and ``with_depth`` default to the
+    model's own branches; a frame may leave out a branch the model has,
+    and asking for one it lacks raises ``ValueError``.
 
-    Returns fn(image [B,H,W,3] raw RGB, camera_matrix [B,3,3],
-               camera_height [B]) -> dict with
-        'sem_seg'   [B,H,W]   int32 argmax classes
-        'panoptic'  [B,H,W]   int32 panoptic ids (class*divisor + inst)
-        'center'    [B,H,W]   f32 heatmap
-        'offset'    [B,H,W,2] f32
-        'depth'     [B,H,W]   f32 metric depth (DGC-rescaled)
-        'points'    [B,H,W,3] f32 camera-frame point cloud
+    Returns fn(image [B,H,W,3] raw RGB, camera_matrix [B,3,3] or None,
+               camera_height [B] or None) -> dict with
+        'sem_seg'   [B,H,W]   int32 argmax classes        (with_panoptic)
+        'panoptic'  [B,H,W]   int32 class*divisor + inst  (with_panoptic)
+        'center'    [B,H,W]   f32 heatmap                 (with_panoptic)
+        'offset'    [B,H,W,2] f32                         (with_panoptic)
+        'depth'     [B,H,W]   f32 depth, DGC-rescaled with a camera
+                                                          (with_depth)
+        'points'    [B,H,W,3] f32 camera-frame point cloud (with_depth,
+                    use_dgc, a camera matrix and return_point_cloud)
     Inputs may be numpy arrays or tensors; they are moved to ``device``.
     """
     s = statics
     device = torch.device(device)
+    if with_panoptic is None:
+        with_panoptic = model.with_panoptic
+    if with_depth is None:
+        with_depth = model.with_depth
+    if (with_panoptic and not model.with_panoptic) \
+            or (with_depth and not model.with_depth):
+        raise ValueError(
+            f"the frame asks for with_panoptic={with_panoptic}, "
+            f"with_depth={with_depth} of a model with "
+            f"with_panoptic={model.with_panoptic}, "
+            f"with_depth={model.with_depth}")
+    if not (with_panoptic or with_depth):
+        raise ValueError("the frame needs panoptic or depth")
 
     @torch.inference_mode()
-    def fused(image, camera_matrix, camera_height) -> Dict[str, torch.Tensor]:
+    def fused(image, camera_matrix=None,
+              camera_height=None) -> Dict[str, torch.Tensor]:
         image = torch.as_tensor(image, device=device)
         out = model(normalize_images(image, pixel_mean, pixel_std))
         stride = model.common_stride
-        h8, w8 = out["sem_seg"].shape[1:3]
+        h8, w8 = out["sem_seg" if with_panoptic else "inv_depth"].shape[1:3]
         out_hw = (h8 * stride, w8 * stride)
+        result: Dict[str, torch.Tensor] = {}
 
-        sem_cf = interpolate_bilinear_cf(
-            out["sem_seg"].permute(0, 3, 1, 2).float(), out_hw)
-        sem = torch.argmax(sem_cf, dim=1).int()
-        center = interpolate_bilinear(out["center"].float(), out_hw)[..., 0]
-        offset = interpolate_bilinear(
-            out["offset"].float(), out_hw) * float(stride)
-        panoptic = panoptic_fusion(
-            sem, center, offset,
-            num_classes=s.num_classes,
-            last_stuff_id=s.last_stuff_id,
-            label_divisor=s.label_divisor,
-            stuff_area=s.stuff_area,
-            void_label=-1,
-            threshold=s.center_threshold,
-            nms_kernel=s.nms_kernel,
-            max_instances=s.max_instances,
-        )
+        if with_panoptic:
+            sem_cf = interpolate_bilinear_cf(
+                out["sem_seg"].permute(0, 3, 1, 2).float(), out_hw)
+            sem = torch.argmax(sem_cf, dim=1).int()
+            center = interpolate_bilinear(
+                out["center"].float(), out_hw)[..., 0]
+            offset = interpolate_bilinear(
+                out["offset"].float(), out_hw) * float(stride)
+            panoptic = panoptic_fusion(
+                sem, center, offset,
+                num_classes=s.num_classes,
+                last_stuff_id=s.last_stuff_id,
+                label_divisor=s.label_divisor,
+                stuff_area=s.stuff_area,
+                void_label=-1,
+                threshold=s.center_threshold,
+                nms_kernel=s.nms_kernel,
+                max_instances=s.max_instances,
+            )
+            result.update(sem_seg=sem, panoptic=panoptic, center=center,
+                          offset=offset)
 
-        # upsample inverse depth, THEN invert (reference order)
-        depth = inv2depth(
-            interpolate_bilinear(out["inv_depth"], out_hw)).float()
-        cam = Camera(torch.as_tensor(camera_matrix, device=device).float())
-        points = cam.reconstruct(depth, frame="c")
-        ground = (panoptic == s.road_class_id) if s.road_class_id != -1 \
-            else None
-        height = torch.as_tensor(camera_height, device=device)
-        scale = dgc_scale_factor(points, height, ground).reshape(-1, 1, 1, 1)
-        depth = depth[..., 0] * scale[..., 0]
-        points = points * scale
-        for cid in s.depth_filter_ids:
-            m = panoptic == cid
-            depth = torch.where(m, 0.0, depth)
-            points = torch.where(m[..., None], float("nan"), points)
-        return dict(sem_seg=sem, panoptic=panoptic, center=center,
-                    offset=offset, depth=depth, points=points)
+        if with_depth:
+            # upsample inverse depth, THEN invert (reference order)
+            depth = inv2depth(
+                interpolate_bilinear(out["inv_depth"], out_hw)).float()
+            panoptic = result.get("panoptic")
+            points = None
+            if s.use_dgc and camera_matrix is not None:
+                cam = Camera(torch.as_tensor(camera_matrix,
+                                             device=device).float())
+                points = cam.reconstruct(depth, frame="c")
+                ground = (panoptic == s.road_class_id) \
+                    if panoptic is not None and s.road_class_id != -1 \
+                    else None
+                height = torch.as_tensor(camera_height, device=device)
+                scale = dgc_scale_factor(points, height,
+                                         ground).reshape(-1, 1, 1, 1)
+                depth = depth * scale
+                points = points * scale
+            depth = depth[..., 0]
+            if panoptic is not None:
+                for cid in s.depth_filter_ids:
+                    m = panoptic == cid
+                    depth = torch.where(m, 0.0, depth)
+                    if points is not None:
+                        points = torch.where(m[..., None], float("nan"),
+                                             points)
+            result["depth"] = depth
+            if points is not None and return_point_cloud:
+                result["points"] = points
+        return result
 
     return fused

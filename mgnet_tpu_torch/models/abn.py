@@ -15,6 +15,11 @@ running statistics as ``0.99 * running + 0.01 * batch``, storing the
 unbiased variance (x n / (n - 1)): the JAX package's ``BN_MOMENTUM =
 0.99`` in flax form, torch momentum 0.01. ``module.eval()`` normalizes
 with the running statistics.
+
+``checkpoint_once`` is ``torch.utils.checkpoint`` for a module that holds
+ABN: the recompute in the backward normalizes with the same batch
+statistics but leaves the running ones alone, so that they update once a
+forward, as under the JAX package's functional ``nn.remat``.
 """
 
 from __future__ import annotations
@@ -22,8 +27,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-__all__ = ["ABN", "ConvABN", "BN_EPS", "BN_MOMENTUM"]
+__all__ = ["ABN", "ConvABN", "BN_EPS", "BN_MOMENTUM", "checkpoint_once"]
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.99  # flax form: running = momentum * running + (1 - m) * batch
@@ -39,6 +45,8 @@ class ABN(nn.Module):
             raise ValueError(f"Unsupported ABN activation: {activation}")
         self.activation = activation
         self.fast_variance = fast_variance
+        # False while checkpoint_once recomputes the forward
+        self.update_stats = True
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -52,6 +60,8 @@ class ABN(nn.Module):
                               min=0.0)
         else:
             var = torch.square(xf - mean[:, None, None]).mean(dim=dims)
+        if not self.update_stats:
+            return mean, var
         with torch.no_grad():
             n = xf.numel() // xf.shape[1]
             correction = n / (n - 1) if n > 1 else 1.0
@@ -90,3 +100,29 @@ class ConvABN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.abn(self.conv(x))
+
+
+def checkpoint_once(module: nn.Module, fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant, no RNG
+    state: the model draws none), where ``fn`` runs ``module``: the
+    forward's activations inside are dropped and recomputed in the
+    backward, and each ABN of ``module`` updates its running statistics in
+    the first run only."""
+    abns = [m for m in module.modules() if isinstance(m, ABN)]
+    first = True
+
+    def run(*a):
+        nonlocal first
+        if first:
+            first = False
+            return fn(*a)
+        for m in abns:
+            m.update_stats = False
+        try:
+            return fn(*a)
+        finally:
+            for m in abns:
+                m.update_stats = True
+
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False)

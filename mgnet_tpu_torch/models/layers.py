@@ -137,12 +137,13 @@ class PoseCNN(nn.Module):
     spatial mean, x 0.01 -> [B, num_context, 6] (tx, ty, tz, rx, ry, rz),
     float32."""
 
-    def __init__(self, depth: int = 18, num_context_images: int = 2):
+    def __init__(self, depth: int = 18, num_context_images: int = 2,
+                 remat: bool = False):
         super().__init__()
         self.num_context_images = num_context_images
         self.encoder = ResNetABN(depth=depth,
                                  in_channels=3 * (num_context_images + 1),
-                                 out_features=("res5",))
+                                 out_features=("res5",), remat=remat)
         self.conv1 = nn.Conv2d(512, 256, 1)
         self.conv2 = nn.Conv2d(256, 256, 3, padding=1)
         self.conv3 = nn.Conv2d(256, 256, 3, padding=1)

@@ -2,9 +2,10 @@
 
 Port of ``mgnet_tpu/models/mgnet.py``.
 
-``MGNet.forward`` is the eval path with ``upsample=False``: it takes a
-normalized NHWC image batch and returns the stride-8 NHWC head outputs
-(the fused frame, inference/fused.py, upsamples them).
+``MGNet.forward`` is the eval path: it takes a normalized NHWC image batch
+and returns the NHWC head outputs, at stride 8 (the fused frame,
+inference/fused.py, upsamples them) or, with ``upsample=True``, at full
+resolution as the JAX model's eval call gives them.
 
 ``MGNet.forward_train(image, image_prev, image_next)`` is the training
 forward (``mgnet_tpu/models/mgnet.py:118-273``): the heads upsampled to
@@ -15,9 +16,18 @@ when ``msc_depth_loss``, and the pose network on the 9-channel channel
 concat of the three normalized frames. Call it with the module in train
 mode for batch-statistics BN, as the JAX training step does.
 
-The pose network and the multi-scale depth heads exist only in a model
-built ``for_training``, as their variables exist in the JAX package only
-when it is initialised through ``forward_train``.
+``with_panoptic`` and ``with_depth`` (the config's ``WITH_PANOPTIC`` and
+``WITH_DEPTH``) select the task branches: a panoptic-only model has no
+depth head and no pose net and takes no context frames; a depth-only
+model has no semantic or instance head. The pose network and the
+multi-scale depth heads exist only in a model built ``for_training``, as
+their variables exist in the JAX package only when it is initialised
+through ``forward_train``.
+
+With ``remat`` (``MODEL.REMAT``) every residual block of both encoders and
+each of the three heads run under ``models.abn.checkpoint_once`` in
+training: their activations are recomputed in the backward
+(``mgnet_tpu/models/mgnet.py:206-215``).
 
 With ``dtype=torch.bfloat16`` the conv stack runs under
 ``torch.autocast(<device>, torch.bfloat16)`` with float32 parameters, the
@@ -29,14 +39,14 @@ float32 and casts back to its input's dtype, as the JAX package's
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 from torch import nn
 
 from mgnet_tpu_torch.geometry.depth import inv2depth
 from mgnet_tpu_torch.geometry.image import interpolate_bilinear_cf
-from mgnet_tpu_torch.models.abn import ABN
+from mgnet_tpu_torch.models.abn import ABN, checkpoint_once
 from mgnet_tpu_torch.models.layers import (
     GlobalContextModule,
     MGNetDecoder,
@@ -118,10 +128,22 @@ class DepthHead(nn.Module):
             self.head1 = MGNetHead(arm_channels[1], head_channels, 1)
             self.head2 = MGNetHead(arm_channels[0], head_channels, 1)
 
-    def forward(self, features):
-        """Eval: [B, 1, H/8, W/8] inverse depth."""
+    def _inv_depth(self, head, f, size):
+        d = torch.sigmoid(head(f)) / 0.5
+        if size is not None:
+            d = interpolate_bilinear_cf(d, size).to(d.dtype)
+        return d.float()
+
+    def _size(self, y):
+        return (y.shape[2] * self.common_stride,
+                y.shape[3] * self.common_stride)
+
+    def forward(self, features, upsample: bool = False):
+        """Eval: [B, 1, H/8, W/8] inverse depth, or [B, 1, H, W] with
+        ``upsample``."""
         y, _ = self.decoder(features)
-        return (torch.sigmoid(self.head0(y)) / 0.5).float()
+        return self._inv_depth(self.head0, y,
+                               self._size(y) if upsample else None)
 
     def forward_train(self, features):
         """Training: the list of full-resolution inverse depths, finest
@@ -130,14 +152,8 @@ class DepthHead(nn.Module):
         inputs = [y]
         if self.msc_heads:
             inputs += [msc[1], msc[0]]
-        outs = []
-        for i, f in enumerate(inputs):
-            d = torch.sigmoid(getattr(self, f"head{i}")(f)) / 0.5
-            size = (y.shape[2] * self.common_stride,
-                    y.shape[3] * self.common_stride)
-            d = interpolate_bilinear_cf(d, size).to(d.dtype)
-            outs.append(d.float())
-        return outs
+        return [self._inv_depth(getattr(self, f"head{i}"), f, self._size(y))
+                for i, f in enumerate(inputs)]
 
 
 class MGNet(nn.Module):
@@ -149,11 +165,18 @@ class MGNet(nn.Module):
                  arm_channels: Sequence[int] = (128, 128),
                  refine_channels: Sequence[int] = (128, 128),
                  dtype: torch.dtype = torch.float32,
-                 for_training: bool = False, msc_depth_loss: bool = True):
+                 for_training: bool = False, msc_depth_loss: bool = True,
+                 with_panoptic: bool = True, with_depth: bool = True,
+                 remat: bool = False):
         super().__init__()
+        if not (with_panoptic or with_depth):
+            raise ValueError("MGNet needs at least one task branch")
         self.common_stride = common_stride
         self.dtype = dtype
-        self.backbone = ResNetABN(depth=depth)
+        self.with_panoptic = with_panoptic
+        self.with_depth = with_depth
+        self.remat = remat
+        self.backbone = ResNetABN(depth=depth, remat=remat)
         in_ch = {"res3": 128, "res4": 256, "res5": 512}
         self.global_context = GlobalContextModule(in_ch["res5"],
                                                   gcm_channels)
@@ -161,12 +184,14 @@ class MGNet(nn.Module):
                       refine_channels=tuple(refine_channels),
                       ffm_channels=ffm_channels, head_channels=head_channels,
                       common_stride=common_stride)
-        self.sem_seg_head = SemSegHead(num_classes=num_classes, **common)
-        self.ins_embed_head = InsEmbedHead(**common)
-        self.depth_head = DepthHead(
-            msc_heads=for_training and msc_depth_loss, **common)
-        if for_training:
-            self.pose_net = PoseCNN(depth=depth)
+        if with_panoptic:
+            self.sem_seg_head = SemSegHead(num_classes=num_classes, **common)
+            self.ins_embed_head = InsEmbedHead(**common)
+        if with_depth:
+            self.depth_head = DepthHead(
+                msc_heads=for_training and msc_depth_loss, **common)
+            if for_training:
+                self.pose_net = PoseCNN(depth=depth, remat=remat)
 
     def _autocast(self, device_type: str):
         return torch.autocast(device_type, dtype=torch.bfloat16,
@@ -177,52 +202,75 @@ class MGNet(nn.Module):
         feats["global_context"] = self.global_context(feats["res5"])
         return feats
 
-    def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Normalized NHWC images -> stride-8 NHWC head outputs:
-        'sem_seg' logits, 'center', 'offset', 'inv_depth' (f32) and
-        'depth'."""
+    def _head(self, head: nn.Module, fn, feats):
+        """``fn(feats)`` of ``head``, under checkpoint_once with remat."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint_once(head, fn, feats)
+        return fn(feats)
+
+    def forward(self, images: torch.Tensor,
+                upsample: bool = False) -> Dict[str, torch.Tensor]:
+        """Normalized NHWC images -> NHWC head outputs, at stride 8 or
+        (``upsample``) full resolution: 'sem_seg' logits, 'center' and
+        'offset' with panoptic; 'inv_depth' (f32) and 'depth' with
+        depth."""
+        out: Dict[str, torch.Tensor] = {}
         with self._autocast(images.device.type):
             feats = self._features(images.permute(0, 3, 1, 2))
-            center, offset = self.ins_embed_head(feats)
-            inv = _nhwc(self.depth_head(feats))
-            return {"sem_seg": _nhwc(self.sem_seg_head(feats)),
-                    "center": _nhwc(center), "offset": _nhwc(offset),
-                    "inv_depth": inv, "depth": inv2depth(inv)}
+            if self.with_panoptic:
+                out["sem_seg"] = _nhwc(self.sem_seg_head(feats, upsample))
+                center, offset = self.ins_embed_head(feats, upsample)
+                out["center"], out["offset"] = _nhwc(center), _nhwc(offset)
+            if self.with_depth:
+                inv = _nhwc(self.depth_head(feats, upsample))
+                out["inv_depth"], out["depth"] = inv, inv2depth(inv)
+        return out
 
-    def forward_train(self, image: torch.Tensor, image_prev: torch.Tensor,
-                      image_next: torch.Tensor) -> Dict[str, object]:
-        """Normalized NHWC frames -> full-resolution NHWC 'sem_seg',
-        'center', 'offset', the list 'inv_depths' ([B, H, W, 1] f32,
-        finest first) and 'poses' ([B, 2, 6] f32)."""
-        if not hasattr(self, "pose_net"):
+    def forward_train(self, image: torch.Tensor,
+                      image_prev: Optional[torch.Tensor] = None,
+                      image_next: Optional[torch.Tensor] = None
+                      ) -> Dict[str, object]:
+        """Normalized NHWC frames -> full-resolution NHWC outputs: with
+        panoptic 'sem_seg', 'center', 'offset'; with depth the list
+        'inv_depths' ([B, H, W, 1] f32, finest first) and 'poses'
+        ([B, 2, 6] f32) from the current frame and the two context frames,
+        which only a model with depth takes."""
+        if self.with_depth and not hasattr(self, "pose_net"):
             raise RuntimeError("forward_train needs a model built "
                                "for_training (pose net, depth heads)")
+        if self.with_depth != (image_prev is not None
+                               and image_next is not None):
+            raise ValueError("forward_train takes the two context frames "
+                             "exactly when the model has depth")
         with self._autocast(image.device.type):
             x = image.permute(0, 3, 1, 2)
             feats = self._features(x)
-            out: Dict[str, object] = {
-                "sem_seg": _nhwc(self.sem_seg_head(feats, upsample=True))}
-            center, offset = self.ins_embed_head(feats, upsample=True)
-            out["center"], out["offset"] = _nhwc(center), _nhwc(offset)
-            out["inv_depths"] = [_nhwc(d) for d in
-                                 self.depth_head.forward_train(feats)]
-            cat = torch.cat([x, image_prev.permute(0, 3, 1, 2),
-                             image_next.permute(0, 3, 1, 2)], dim=1)
-            out["poses"] = self.pose_net(cat)
+            out: Dict[str, object] = {}
+            if self.with_panoptic:
+                out["sem_seg"] = _nhwc(self._head(
+                    self.sem_seg_head,
+                    lambda f: self.sem_seg_head(f, upsample=True), feats))
+                center, offset = self._head(
+                    self.ins_embed_head,
+                    lambda f: self.ins_embed_head(f, upsample=True), feats)
+                out["center"], out["offset"] = _nhwc(center), _nhwc(offset)
+            if self.with_depth:
+                out["inv_depths"] = [_nhwc(d) for d in self._head(
+                    self.depth_head, self.depth_head.forward_train, feats)]
+                cat = torch.cat([x, image_prev.permute(0, 3, 1, 2),
+                                 image_next.permute(0, 3, 1, 2)], dim=1)
+                out["poses"] = self.pose_net(cat)
         return out
 
 
 def build_model(cfg, device="cuda", for_training: bool = False) -> MGNet:
-    """MGNet from a config (mgnet_tpu_torch.config) on ``device``: in eval
-    mode, or with the pose net and multi-scale depth heads in train mode
-    when ``for_training``. Weights are the constructor's; load real ones
-    with utils.weights.load_jax_params or draw them with init_random_."""
+    """MGNet from a config (mgnet_tpu_torch.config) on ``device``, with the
+    config's task branches and remat: in eval mode, or with the pose net
+    and multi-scale depth heads in train mode when ``for_training``.
+    Weights are the constructor's; load real ones with
+    utils.weights.load_jax_params or draw them with init_random_."""
     h = cfg.MODEL.SEM_SEG_HEAD
     dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-    if for_training and not (cfg.WITH_PANOPTIC and cfg.WITH_DEPTH):
-        raise NotImplementedError(
-            "the port trains the joint model only (WITH_PANOPTIC and "
-            "WITH_DEPTH); single-task training is a later slice (ROADMAP)")
     model = MGNet(
         num_classes=h.NUM_CLASSES,
         depth=cfg.MODEL.RESNETS.DEPTH,
@@ -235,6 +283,9 @@ def build_model(cfg, device="cuda", for_training: bool = False) -> MGNet:
         dtype=dtypes[cfg.MODEL.COMPUTE_DTYPE],
         for_training=for_training,
         msc_depth_loss=cfg.MODEL.DEPTH_HEAD.MSC_LOSS,
+        with_panoptic=cfg.WITH_PANOPTIC,
+        with_depth=cfg.WITH_DEPTH,
+        remat=cfg.MODEL.REMAT,
     )
     model = model.to(device)
     return model.train() if for_training else model.eval()

@@ -5,7 +5,9 @@ conv-ABN + 3x3/s2 max pool), BasicBlocks with leaky-ABN conv1,
 identity-ABN conv2 and shortcut, residual add then ReLU; stages res2..res5
 at strides 4/8/16/32. The stem is a plain ``Conv2d(padding=3)``: the JAX
 space-to-depth form (``resnet.py:63-104``) is a TPU layout trick over the
-same variable tree.
+same variable tree. With ``remat`` each residual block runs under
+``checkpoint_once`` while gradients are on (``mgnet_tpu/models/resnet.py:
+175-186``).
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mgnet_tpu_torch.models.abn import ConvABN
+from mgnet_tpu_torch.models.abn import ConvABN, checkpoint_once
 
 __all__ = ["ResNetABN", "BasicBlock", "BasicStem", "RESNET_STAGE_BLOCKS"]
 
@@ -56,8 +58,9 @@ class ResNetABN(nn.Module):
     tree: ``res{2..5}_block{i}``."""
 
     def __init__(self, depth: int = 18, in_channels: int = 3,
-                 out_features=("res3", "res4", "res5")):
+                 out_features=("res3", "res4", "res5"), remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.out_features = tuple(out_features)
         self.stem = BasicStem(in_channels)
         self.block_names = []
@@ -75,7 +78,9 @@ class ResNetABN(nn.Module):
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         y = self.stem(x)
         feats = {"stem": y}
+        remat = self.remat and torch.is_grad_enabled()
         for name in self.block_names:
-            y = getattr(self, name)(y)
+            block = getattr(self, name)
+            y = checkpoint_once(block, block, y) if remat else block(y)
             feats[name.split("_")[0]] = y
         return {k: v for k, v in feats.items() if k in self.out_features}

@@ -1,20 +1,34 @@
 """The training step: forward, losses, uncertainty weighting, backward,
-clip and Adam.
+clip and the optimizer; and the eval step.
 
 Port of ``mgnet_tpu/train/step.py``: ``normalize_images``, ``unit_image``,
 ``compute_losses`` (the same keys in the same insertion order, which
-indexes ``log_vars``), ``apply_uncertainty`` and ``make_train_step`` for
-``SOLVER.GRAD_ACCUM_STEPS == 1``. The forward runs under bf16 autocast
-when ``MODEL.COMPUTE_DTYPE == "bfloat16"`` (the model applies it); the
-losses run in float32. The BN running statistics update during the
-forward, as the JAX step's mutable ``batch_stats`` do.
+indexes ``log_vars``: 0-2 for a panoptic-only model, 0-1 for a depth-only
+one), ``apply_uncertainty``, ``make_train_step`` and ``make_eval_step``.
+The forward runs under bf16 autocast when ``MODEL.COMPUTE_DTYPE ==
+"bfloat16"`` (the model applies it); the losses run in float32. The BN
+running statistics update during the forward, as the JAX step's mutable
+``batch_stats`` do. Context frames are normalized and passed only with
+``WITH_DEPTH``.
+
+``SOLVER.GRAD_ACCUM_STEPS = k > 1`` splits the batch on dim 0 into k
+contiguous micro-batches (as the JAX step's ``reshape((k, b // k) ...)``
+does), runs forward and backward on each in turn (the gradients summing
+in ``.grad``, the BN running statistics carried from one to the next),
+scales the gradients and the metrics by 1/k, and steps the optimizer once.
+
+``MODEL.REMAT`` runs the photometric loss under ``torch.utils.checkpoint``
+(JAX: ``jax.checkpoint``, ``mgnet_tpu/train/step.py:120-122``): the warp
+and SSIM forward kernels run again in the backward, in place of keeping
+the warped frames.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from mgnet_tpu_torch.losses import (
     center_loss,
@@ -26,7 +40,8 @@ from mgnet_tpu_torch.losses import (
 )
 
 __all__ = ["normalize_images", "unit_image", "compute_losses",
-           "apply_uncertainty", "make_train_step"]
+           "apply_uncertainty", "make_eval_step", "make_train_step",
+           "split_batch"]
 
 
 def normalize_images(images: torch.Tensor, pixel_mean,
@@ -79,19 +94,28 @@ def compute_losses(cfg, outputs: Dict, batch: Dict) -> Dict[str, torch.Tensor]:
             batch["offset_weights"]) * ih.OFFSET_LOSS_WEIGHT
     if cfg.WITH_DEPTH:
         dh = cfg.MODEL.DEPTH_HEAD
-        losses.update(multi_view_photometric_loss(
-            outputs["inv_depths"], outputs["poses"], batch["camera_matrix"],
-            unit_image(batch["image_orig"]),
-            [unit_image(batch["image_prev_orig"]),
-             unit_image(batch["image_next_orig"])],
-            batch.get("reprojection_mask"),
-            ssim_loss_weight=dh.SSIM_LOSS_WEIGHT,
-            photometric_loss_weight=dh.PHOTOMETRIC_LOSS_WEIGHT,
-            smoothing_loss_weight=dh.SMOOTHING_LOSS_WEIGHT,
-            automask_loss=dh.AUTOMASK_LOSS,
-            photometric_reduce_op=dh.PHOTOMETRIC_REDUCE_OP,
-            padding_mode=dh.PADDING_MODE,
-        ))
+
+        def photo(inv_depths, poses, K, image, context, mask):
+            return multi_view_photometric_loss(
+                inv_depths, poses, K, image, context, mask,
+                ssim_loss_weight=dh.SSIM_LOSS_WEIGHT,
+                photometric_loss_weight=dh.PHOTOMETRIC_LOSS_WEIGHT,
+                smoothing_loss_weight=dh.SMOOTHING_LOSS_WEIGHT,
+                automask_loss=dh.AUTOMASK_LOSS,
+                photometric_reduce_op=dh.PHOTOMETRIC_REDUCE_OP,
+                padding_mode=dh.PADDING_MODE,
+            )
+
+        args = (outputs["inv_depths"], outputs["poses"],
+                batch["camera_matrix"], unit_image(batch["image_orig"]),
+                [unit_image(batch["image_prev_orig"]),
+                 unit_image(batch["image_next_orig"])],
+                batch.get("reprojection_mask"))
+        if cfg.MODEL.REMAT and torch.is_grad_enabled():
+            losses.update(checkpoint(photo, *args, use_reentrant=False,
+                                     preserve_rng_state=False))
+        else:
+            losses.update(photo(*args))
     return losses
 
 
@@ -111,26 +135,41 @@ def apply_uncertainty(losses: Dict[str, torch.Tensor],
     return weighted, metrics
 
 
+def split_batch(batch: Dict[str, torch.Tensor],
+                k: int) -> List[Dict[str, torch.Tensor]]:
+    """``k`` contiguous micro-batches of every tensor's dim 0; a batch that
+    does not divide raises."""
+    micro = [{} for _ in range(k)]
+    for key, x in batch.items():
+        b = x.shape[0]
+        if b % k:
+            raise ValueError(f"batch {b} of '{key}' does not divide into "
+                             f"{k} micro-batches (SOLVER.GRAD_ACCUM_STEPS)")
+        m = b // k
+        for i in range(k):
+            micro[i][key] = x[i * m:(i + 1) * m]
+    return micro
+
+
 def make_train_step(cfg) -> Callable:
     """The train step: (state, batch) -> (state, metrics). ``state`` is a
     ``train.state.TrainState``, updated in place; ``batch`` holds the
     synthetic_train_batch / mapper keys as tensors on the state's device.
     The metrics are detached tensors on that device (reading them
     synchronises)."""
-    if int(cfg.SOLVER.GRAD_ACCUM_STEPS) > 1:
-        raise NotImplementedError(
-            "SOLVER.GRAD_ACCUM_STEPS > 1: micro-batch gradient accumulation "
-            "is a later slice of the port (ROADMAP.md, Queue 1)")
     pixel_mean = tuple(cfg.MODEL.PIXEL_MEAN)
     pixel_std = tuple(cfg.MODEL.PIXEL_STD)
+    with_depth = cfg.WITH_DEPTH
     with_uncertainty = cfg.WITH_UNCERTAINTY
+    accum = max(1, int(cfg.SOLVER.GRAD_ACCUM_STEPS))
 
     def loss_fn(params, batch):
         def norm(key):
             return normalize_images(batch[key], pixel_mean, pixel_std)
 
-        outputs = params.model.forward_train(
-            norm("image"), norm("image_prev"), norm("image_next"))
+        context = (norm("image_prev"), norm("image_next")) if with_depth \
+            else ()
+        outputs = params.model.forward_train(norm("image"), *context)
         losses = compute_losses(cfg, outputs, batch)
         metrics: Dict[str, torch.Tensor] = {}
         if with_uncertainty:
@@ -140,13 +179,49 @@ def make_train_step(cfg) -> Callable:
         metrics["loss_total"] = total
         return total, metrics
 
+    def forward_backward(params, batch):
+        total, metrics = loss_fn(params, batch)
+        total.backward()
+        return {k: v.detach() for k, v in metrics.items()}
+
     def train_step(state, batch):
         state.params.train()
         state.optimizer.zero_grad()
-        total, metrics = loss_fn(state.params, batch)
-        total.backward()
+        if accum == 1:
+            metrics = forward_backward(state.params, batch)
+        else:
+            metrics = None
+            for mb in split_batch(batch, accum):
+                m = forward_backward(state.params, mb)
+                metrics = m if metrics is None else {
+                    k: metrics[k] + v for k, v in m.items()}
+            inv = 1.0 / accum
+            with torch.no_grad():
+                torch._foreach_mul_([p.grad for p in state.optimizer.params
+                                     if p.grad is not None], inv)
+            metrics = {k: v * inv for k, v in metrics.items()}
         metrics["grad_norm"] = state.optimizer.step()
         state.step += 1
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, metrics
 
     return train_step
+
+
+def make_eval_step(cfg) -> Callable:
+    """The raw inference step (``mgnet_tpu/train/step.py:258-268``):
+    (model, images [B, H, W, 3] raw RGB) -> the model's full-resolution
+    NHWC outputs, normalized input, eval-mode BN, no gradients."""
+    pixel_mean = tuple(cfg.MODEL.PIXEL_MEAN)
+    pixel_std = tuple(cfg.MODEL.PIXEL_STD)
+
+    @torch.no_grad()
+    def eval_step(model, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        was_training = model.training
+        model.eval()
+        try:
+            return model(normalize_images(images, pixel_mean, pixel_std),
+                         upsample=True)
+        finally:
+            model.train(was_training)
+
+    return eval_step

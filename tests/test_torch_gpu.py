@@ -203,3 +203,61 @@ def test_fused_residual_autograd_launches_both_kernels():
     assert (ssim_residual_fwd.launches, ssim_residual_bwd.launches) == (
         before[0] + 1, before[1] + 1)
     assert torch.equal(xr.grad, ssim_residual_bwd_reference(x, y, g)[0])
+
+
+def _train_launches(accum, remat, b=4, h=128, w=256):
+    """One bf16 step of a narrow joint model on the card: the kernel
+    launches it made and the state after it."""
+    from mgnet_tpu_torch.config import get_default_config
+    from mgnet_tpu_torch.data import synthetic_train_batch
+    from mgnet_tpu_torch.models import build_model, init_random_
+    from mgnet_tpu_torch.train import create_train_state, make_train_step
+
+    cfg = get_default_config()
+    cfg.MODEL.GCM.GCM_CHANNELS = 32
+    for head in (cfg.MODEL.SEM_SEG_HEAD, cfg.MODEL.INS_EMBED_HEAD,
+                 cfg.MODEL.DEPTH_HEAD):
+        head.HEAD_CHANNELS, head.FFM_CHANNELS = 32, 48
+        head.ARM_CHANNELS, head.REFINE_CHANNELS = [32, 32], [32, 32]
+    cfg.MODEL.SEM_SEG_HEAD.OHEM_N_MIN = 3000
+    cfg.SOLVER.GRAD_ACCUM_STEPS = accum
+    cfg.MODEL.REMAT = remat
+    model = build_model(cfg, device="cpu", for_training=True)
+    init_random_(model, torch.Generator().manual_seed(0))
+    state = create_train_state(cfg, model.cuda())
+    batch = {k: torch.from_numpy(v).cuda() for k, v in
+             synthetic_train_batch(b, h, w, seed=1).items()}
+    before = (warp_bilinear.launches, ssim_residual_fwd.launches,
+              ssim_residual_bwd.launches)
+    _, metrics = make_train_step(cfg)(state, batch)
+    torch.cuda.synchronize()
+    launched = tuple(n - m for n, m in zip(
+        (warp_bilinear.launches, ssim_residual_fwd.launches,
+         ssim_residual_bwd.launches), before))
+    assert all(torch.isfinite(v) for v in metrics.values()), metrics
+    return launched, state
+
+
+@pytest.mark.gpu
+def test_accumulation_step_launches_per_micro_batch():
+    """bf16, batch 4 as 2 x 2: per micro-batch the warp per context frame
+    and scale (2 x 3), the SSIM forward per candidate (2 x 4), its
+    backward per warped candidate (2 x 3)."""
+    _need_card()
+    launched, _ = _train_launches(accum=2, remat=False)
+    assert launched == (2 * 6, 2 * 8, 2 * 6)
+
+
+@pytest.mark.gpu
+def test_remat_step_relaunches_the_forward_kernels():
+    """MODEL.REMAT recomputes the photometric loss in the backward: the
+    warp and SSIM forward launch twice, the backward once; the BN running
+    statistics update once, as without REMAT."""
+    _need_card()
+    plain, plain_state = _train_launches(accum=1, remat=False)
+    remat, remat_state = _train_launches(accum=1, remat=True)
+    assert plain == (6, 8, 6) and remat == (12, 16, 6)
+    a = plain_state.params.state_dict()
+    b = remat_state.params.state_dict()
+    stats = [k for k in a if k.endswith(("running_mean", "running_var"))]
+    assert stats and all(torch.equal(a[k], b[k]) for k in stats)

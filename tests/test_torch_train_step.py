@@ -309,10 +309,17 @@ def _nest(flat):
 
 
 def test_grad_accumulation_is_refused():
-    cfg = get_default_config()
+    """Gradient accumulation runs (tests/test_torch_train_variants.py); a
+    batch that does not divide into its micro-batches is refused before
+    any forward."""
+    cfg = _apply_widths(get_default_config())
     cfg.SOLVER.GRAD_ACCUM_STEPS = 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(cfg)
+    model = build_model(cfg, device="cpu", for_training=True)
+    state = t_create_train_state(cfg, model)
+    batch = _tensors(synthetic_train_batch(3, 32, 32, seed=0))
+    with pytest.raises(ValueError, match="does not divide"):
+        make_train_step(cfg)(state, batch)
+    assert state.step == 0 and state.optimizer.count == 0
 
 
 def test_train_params_hold_log_vars():
