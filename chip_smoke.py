@@ -63,12 +63,36 @@ Phases, each printing its findings:
      plain clustering, and its steady time; one f32 step on the card
      against the CPU with GRAD_ACCUM_STEPS 2, REMAT, SGD, FREEZE_AT 2 and
      WarmupCosineLR (batch 4, 128x256), held to phase 5's bars;
-  8. a JSON line of kernel numbers (with each path's launches), the total
+  8. the trainer from a dataset on disk: a Cityscapes-layout panoptic tree
+     of 8 frames at 1024x2048 (with their -/+1 sequence frames, panoptic
+     PNGs of road, sky, a person and two cars, camera and panoptic JSON)
+     written by data.write_cityscapes_tree into a temporary directory,
+     every PNG read back
+     by read_png and held to what was written; the host library's unfilter
+     (filters 0-4) and Pillow-exact resamples (1024x2048 -> 2048x4096 and
+     -> 512x1024, bilinear and nearest) held to their numpy versions;
+     tools/train_net.py's main on configs/MGNet-Cityscapes-Fine.yaml as it
+     is (batch 12 of 1024x1024 crops, bf16, the ImageNet npz) with
+     MAX_ITER 4, CHECKPOINT_PERIOD 2, TEST.EVAL_PERIOD 0: every step's
+     losses finite and its launches equal to expected_launches(cfg), the
+     npz graft matched, checkpoints 2 and 4 and model_final written; a
+     second Trainer with --resume and MAX_ITER 6 whose restored state
+     equals the step-4 checkpoint bit for bit, then 2 more iterations;
+     ms/iteration, the wait on the loader and the checkpoint writes apart;
+     the same step on one batch with no loader running and while a loader
+     of 1 thread, of one thread fewer than the host's cores, and of
+     NUM_WORKERS threads maps samples; the mapper's ms/sample
+     by stage (PNG read, resize + crop, colour jitter, targets) on one
+     thread, the host's core count, the loader's samples/s and peak
+     memory;
+  9. a JSON line of kernel numbers (with each path's launches), the total
      elapsed seconds, nvidia-smi's line, and as the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failure raises and the script exits non-zero without the last line.
-It writes nothing but the kernel build directory (mgnet_tpu_torch/_build).
+It writes the kernel and host library build directory
+(mgnet_tpu_torch/_build) and, for the trainer phase, a temporary directory
+that it removes.
 """
 
 from __future__ import annotations
@@ -82,8 +106,11 @@ import contextlib
 import ctypes
 import itertools
 import json
+import os
 import subprocess
 import sys
+import tempfile
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -91,8 +118,10 @@ import torch
 
 import torch.nn.functional as F
 
+import mgnet_tpu_torch.data.mapper as mapper_module
 import mgnet_tpu_torch.geometry.image as geometry_image
 import mgnet_tpu_torch.ops.ssim as ops_ssim
+import mgnet_tpu_torch.train.trainer as trainer_module
 from mgnet_tpu_torch.config import (
     apply_cityscapes_fine,
     get_default_config,
@@ -101,9 +130,23 @@ from mgnet_tpu_torch.config import (
 from mgnet_tpu_torch.data import (
     CITYSCAPES_CATEGORIES,
     CITYSCAPES_SCENE_SEG_CATEGORIES,
+    DatasetCatalog,
     Metadata,
+    TrainDatasetMapper,
+    TrainLoader,
     build_meta,
+    read_png,
     synthetic_train_batch,
+    write_cityscapes_tree,
+)
+from mgnet_tpu_torch.data.image_io import (
+    png_filter_reference,
+    png_unfilter,
+    png_unfilter_reference,
+    resize_bilinear,
+    resize_bilinear_reference,
+    resize_nearest,
+    resize_nearest_reference,
 )
 from mgnet_tpu_torch.geometry import Camera, Pose, synthesis_coords
 from mgnet_tpu_torch.inference import build_fused_inference, statics_from_meta
@@ -128,9 +171,13 @@ from mgnet_tpu_torch.postprocessing.panoptic import (
     find_instance_centers,
     panoptic_fusion,
 )
+from mgnet_tpu_torch.tools import train_net
 from mgnet_tpu_torch.train import create_train_state, make_train_step
 from mgnet_tpu_torch.train.step import normalize_images
+from mgnet_tpu_torch.train.trainer import Trainer
 from mgnet_tpu_torch.utils import load_jax_params
+from mgnet_tpu_torch.utils.checkpoint import CheckpointManager
+from mgnet_tpu_torch.utils.profiling import steady_state_timer
 
 ROOT = Path(__file__).resolve().parent
 H, W, K = 1024, 2048, 128
@@ -148,6 +195,15 @@ KH, KW = 384, 1280
 FRAME_WARMUP, FRAME_ITERS = 5, 20
 # the f32 card-vs-CPU step with the config phase's options
 SMALL_B, SMALL_H, SMALL_W = 4, 128, 256
+# the trainer phase: a tree of 8 Cityscapes-size frames, the Fine YAML as
+# it is (batch 12 of 1024x1024 crops) for 4 iterations, a resume for 2
+# more, 2 batches of the loader alone, and the step timed STEP_ITERS times
+# after a warmup step beside each of 0, 1, cores - 1 and NUM_WORKERS loader
+# threads; TRAINER_OPTS are extra overrides (none on the card)
+TREE_FRAMES, TREE_H, TREE_W = 8, 1024, 2048
+TRAINER_ITERS, TRAINER_RESUME, LOADER_BATCHES = 4, 2, 2
+STEP_ITERS = 2
+TRAINER_OPTS: tuple = ()
 SEED = 0
 DEVICE = "cuda"
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 FLOP/s (an
@@ -1227,6 +1283,364 @@ def phase_configs(smi):
     return paths, frames
 
 
+def host_ops_check(written, h, w):
+    """The host library against its numpy versions on this host: the
+    unfilter of the first frame's first rows under all five filters, and
+    the Fine recipe's largest resize (h x w -> 2h x 2w) and a downscale
+    (-> h/2 x w/2), bilinear on the frame, nearest on its label."""
+    frame = next(a for p, a in written.items() if "leftImg8bit/" in str(p))
+    label = next(a for p, a in written.items() if "panoptic" in str(p))
+    rows = frame[:16].reshape(16, -1)
+    stream = png_filter_reference(rows, 3, [y % 5 for y in range(16)])
+    t0 = time.perf_counter()
+    got = png_unfilter(stream.tobytes(), 16, rows.shape[1], 3)
+    cpp_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want = png_unfilter_reference(stream.tobytes(), 16, rows.shape[1], 3)
+    ref_ms = (time.perf_counter() - t0) * 1e3
+    if not (np.array_equal(got, want) and np.array_equal(got, rows)):
+        raise AssertionError("the C++ unfilter disagrees with numpy")
+    log(f"[trainer-host] unfilter 16 x {w} RGB rows, filters 0-4: C++ equals"
+        f" numpy and the rows; {cpp_ms:.2f} ms against numpy's "
+        f"{ref_ms:.1f} ms (host clock)")
+    for (oh, ow) in ((2 * h, 2 * w), (h // 2, w // 2)):
+        for name, img, cpp, ref in (
+                ("bilinear", frame, resize_bilinear,
+                 resize_bilinear_reference),
+                ("nearest", label, resize_nearest,
+                 resize_nearest_reference)):
+            t0 = time.perf_counter()
+            got = cpp(img, oh, ow)
+            cpp_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            want = ref(img, oh, ow)
+            ref_ms = (time.perf_counter() - t0) * 1e3
+            if not np.array_equal(got, want):
+                raise AssertionError(f"the C++ {name} resample {h}x{w} -> "
+                                     f"{oh}x{ow} disagrees with numpy")
+            log(f"[trainer-host] {name} {h}x{w}x3 -> {oh}x{ow}: C++ equals "
+                f"numpy bit for bit; {cpp_ms:.1f} ms against numpy's "
+                f"{ref_ms:.1f} ms (host clock)")
+
+
+def trainer_argv(root: Path, out: Path, iters: int, *flags):
+    return ["--config-file", str(CONFIG_DIR / "MGNet-Cityscapes-Fine.yaml"),
+            "--data-root", str(root), "--device", DEVICE, *flags,
+            "SOLVER.MAX_ITER", str(iters), "SOLVER.CHECKPOINT_PERIOD", "2",
+            "TEST.EVAL_PERIOD", "0", "OUTPUT_DIR", str(out),
+            "WRITE_OUTPUT_TO_SUBDIR", "False", "MODEL.WEIGHTS",
+            str(ROOT / "weights" / "imagenet_weights.npz"), *TRAINER_OPTS]
+
+
+@contextlib.contextmanager
+def recorded_steps():
+    """Within the block, every training step that trainer.py makes keeps
+    its kernel launches, its metrics (read on the host: one sync a step)
+    and its batch: a list of (launches, metrics, batch)."""
+    steps = []
+    make = trainer_module.make_train_step
+
+    def recording(cfg):
+        step = make(cfg)
+
+        def call(state, batch):
+            before = counts()
+            state, metrics = step(state, batch)
+            host = {k: float(v) for k, v in metrics.items()}
+            steps.append(({k: v - before[k] for k, v in counts().items()},
+                          host, batch))
+            return state, metrics
+        return call
+
+    trainer_module.make_train_step = recording
+    try:
+        yield steps
+    finally:
+        trainer_module.make_train_step = make
+
+
+def check_trainer_steps(tag, cfg, steps, n):
+    want = expected_launches(cfg)
+    if len(steps) != n:
+        raise AssertionError(f"{tag}: {len(steps)} steps, expected {n}")
+    for i, (launched, metrics, _) in enumerate(steps):
+        bad = [k for k, v in metrics.items() if not np.isfinite(v)]
+        log(f"[{tag}] step {i}: launches {launched}, loss_total "
+            f"{metrics['loss_total']:.6g}, " + ", ".join(
+                f"{k} {v:.5g}" for k, v in metrics.items()
+                if k.endswith("_raw")))
+        if bad:
+            raise AssertionError(f"{tag} step {i}: non-finite {bad}")
+        if launched != want:
+            raise AssertionError(f"{tag} step {i}: kernel launches "
+                                 f"{launched}, expected {want}")
+
+
+def same_state(state, payload) -> int:
+    """Raises unless ``state`` equals a checkpoint's payload bit for bit;
+    returns the number of tensors compared."""
+    n = 0
+    params = state.params.state_dict()
+    if params.keys() != payload["params"].keys():
+        raise AssertionError("restored parameter names differ")
+    for k, v in payload["params"].items():
+        if not torch.equal(params[k].cpu(), v.cpu()):
+            raise AssertionError(f"restored {k} differs from the checkpoint")
+        n += 1
+    opt = state.optimizer.state_dict()
+    want = payload["optimizer"]
+    if opt["names"] != want["names"] or opt["count"] != want["count"]:
+        raise AssertionError("restored optimizer names or count differ")
+    for a, b in zip(opt["mu"] + opt["nu"], want["mu"] + want["nu"]):
+        if not torch.equal(a.cpu(), b.cpu()):
+            raise AssertionError("a restored optimizer moment differs")
+        n += 1
+    if state.step != payload["step"]:
+        raise AssertionError(f"restored step {state.step}, checkpoint "
+                             f"{payload['step']}")
+    return n
+
+
+MAPPER_STAGES = ("read_png", "resize+crop", "jitter", "targets")
+
+
+@contextlib.contextmanager
+def mapper_stages(mapper):
+    """Within the block, ``mapper``'s calls add their host seconds by stage
+    to the dict it yields: the PNG reads (read_png: inflate and unfilter),
+    the resize + crop of the frames and the label, the colour jitter of
+    the frames, and the targets (rgb2id and the target generator)."""
+    spent = dict.fromkeys(MAPPER_STAGES, 0.0)
+
+    def timed(stage, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[stage] += time.perf_counter() - t0
+        return call
+
+    sampler, jitter = mapper.sampler, mapper_module.sample_color_jitter
+    rgb2id = mapper_module.rgb2id
+
+    def sample(rng, shape):
+        tfl = sampler(rng, shape)
+        tfl.apply_image = timed("resize+crop", tfl.apply_image)
+        tfl.apply_segmentation = timed("resize+crop", tfl.apply_segmentation)
+        return tfl
+
+    def sample_jitter(*args):
+        j = jitter(*args)
+        j.apply_image = timed("jitter", j.apply_image)
+        return j
+
+    mapper._read = timed("read_png", mapper._read)
+    mapper.sampler = sample
+    mapper.target_gen = timed("targets", mapper.target_gen)
+    mapper_module.sample_color_jitter = sample_jitter
+    mapper_module.rgb2id = timed("targets", rgb2id)
+    try:
+        yield spent
+    finally:
+        mapper_module.sample_color_jitter = jitter
+        mapper_module.rgb2id = rgb2id
+
+
+def loader_rates(cfg, batches: int):
+    """The mapper's ms/sample on one thread, in all and by stage, and the
+    loader's samples/s with the config's workers and nothing else running
+    (host clock)."""
+    name = cfg.DATASETS.TRAIN[0]
+    dicts = DatasetCatalog.get(name)
+    n = min(4, len(dicts))
+    mapper = TrainDatasetMapper(cfg, dataset_name=name)
+    with mapper_stages(mapper) as spent:
+        t0 = time.perf_counter()
+        for j, d in enumerate(dicts[:n]):
+            mapper(d, rng=np.random.default_rng((SEED, 99, j)))
+        mapper_ms = (time.perf_counter() - t0) / n * 1e3
+    stages_ms = {k: v / n * 1e3 for k, v in spent.items()}
+    loader = TrainLoader(dicts, TrainDatasetMapper(cfg, dataset_name=name),
+                         cfg.SOLVER.IMS_PER_BATCH, seed=1,
+                         num_workers=cfg.DATALOADER.NUM_WORKERS,
+                         prefetch=cfg.DATALOADER.PREFETCH,
+                         pin_memory=DEVICE != "cpu")
+    it = iter(loader)
+    next(it)
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        next(it)
+    rate = batches * cfg.SOLVER.IMS_PER_BATCH / (time.perf_counter() - t0)
+    loader.close()
+    return mapper_ms, stages_ms, rate
+
+
+@contextlib.contextmanager
+def loader_running(cfg, workers: int):
+    """Within the block, a TrainLoader of ``workers`` threads maps samples
+    as the trainer's does (pinned; batches of ``workers`` samples, so that
+    every thread stays busy) and a thread takes its batches; 0: nothing
+    runs. Raises if the loader failed."""
+    if not workers:
+        yield
+        return
+    name = cfg.DATASETS.TRAIN[0]
+    loader = TrainLoader(DatasetCatalog.get(name),
+                         TrainDatasetMapper(cfg, dataset_name=name),
+                         workers, seed=2, num_workers=workers,
+                         prefetch=cfg.DATALOADER.PREFETCH,
+                         pin_memory=DEVICE != "cpu")
+    stop, failed = threading.Event(), []
+
+    def take():
+        try:
+            for _ in loader:
+                if stop.is_set():
+                    return
+        except Exception as e:  # raised below, in the caller's thread
+            failed.append(e)
+
+    taker = threading.Thread(target=take, daemon=True)
+    taker.start()
+    try:
+        yield
+    finally:
+        stop.set()
+        taker.join()
+        loader.close()
+    if failed:
+        raise AssertionError(f"the {workers}-thread loader failed") \
+            from failed[0]
+
+
+def phase_trainer(smi):
+    """tools/train_net.py from the Fine YAML on a tree on disk: the host
+    library checked, TRAINER_ITERS trainer iterations at the recipe's
+    batch with checkpoints, then a resume for TRAINER_RESUME more; returns
+    each run's kernel launches (counts from 0 just before it)."""
+    with tempfile.TemporaryDirectory(prefix="mgnet_trainer_") as tmp:
+        root, out = Path(tmp), Path(tmp) / "out"
+        t0 = time.perf_counter()
+        written = {Path(p): a for p, a in write_cityscapes_tree(
+            str(root), TREE_FRAMES, TREE_H, TREE_W, seed=SEED).items()}
+        log(f"[trainer] wrote {len(written)} PNGs ({TREE_FRAMES} frames at "
+            f"{TREE_H}x{TREE_W}, -/+1 sequence frames, panoptic labels) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        for path, arr in written.items():
+            if not np.array_equal(read_png(path), arr):
+                raise AssertionError(f"{path}: read_png differs from what "
+                                     "write_png wrote")
+        log(f"[trainer] read_png of all {len(written)} equals what was "
+            f"written ({time.perf_counter() - t0:.1f} s, one thread)")
+        host_ops_check(written, TREE_H, TREE_W)
+
+        if DEVICE != "cpu":
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        with recorded_steps() as steps:
+            trainer = train_net.main(trainer_argv(root, out, TRAINER_ITERS))
+        wall = time.perf_counter() - t0
+        launches = counts()
+        cfg = trainer.cfg
+        b = cfg.SOLVER.IMS_PER_BATCH
+        crop = tuple(cfg.INPUT.CROP.SIZE)
+        log(f"[trainer] train_net on {cfg.DATASETS.TRAIN[0]}: batch "
+            f"{b} of {crop[0]}x{crop[1]} crops, {cfg.MODEL.COMPUTE_DTYPE}, "
+            f"{cfg.DATALOADER.NUM_WORKERS} loader threads, npz graft "
+            f"{trainer.pretrained}; {TRAINER_ITERS} iterations, "
+            f"{wall:.1f} s with set-up")
+        check_trainer_steps("trainer", cfg, steps, TRAINER_ITERS)
+        if not trainer.pretrained or trainer.pretrained["matched"] <= 0:
+            raise AssertionError(f"npz graft matched {trainer.pretrained}")
+        ckpts = CheckpointManager(str(out / "checkpoints")).steps()
+        final = out / "model_final" / "params.pt"
+        log(f"[trainer] checkpoints {ckpts}, model_final "
+            f"{final.is_file()}, launches {launches}")
+        if ckpts != [2, TRAINER_ITERS] or not final.is_file():
+            raise AssertionError("missing checkpoints or model_final")
+        iter_ms = [s * 1e3 for s in trainer.iter_seconds]
+        wait_ms = [s * 1e3 for s in trainer.data_seconds]
+        save_ms = [s * 1e3 for s in trainer.save_seconds]
+        peak = (torch.cuda.max_memory_allocated() / 2**30
+                if DEVICE != "cpu" else float("nan"))
+
+        payload = torch.load(out / "checkpoints" / f"{TRAINER_ITERS}.pt",
+                             map_location="cpu", weights_only=True)
+        n_iters = TRAINER_ITERS + TRAINER_RESUME
+        args = train_net.parse_args(trainer_argv(root, out, n_iters,
+                                                 "--resume"))
+        with recorded_steps() as resume_steps:
+            resumed = Trainer(train_net.setup(args), device=DEVICE)
+        resumed.resume_or_load(resume=True)
+        n = same_state(resumed.state, payload)
+        n_mem = same_state(resumed.state, {
+            "params": trainer.state.params.state_dict(),
+            "optimizer": trainer.state.optimizer.state_dict(),
+            "step": trainer.state.step})
+        log(f"[trainer-resume] restored step {resumed.state.step}: {n} "
+            f"tensors (parameters, BN statistics, Adam moments) and count "
+            f"{resumed.state.optimizer.count} equal the checkpoint bit for "
+            f"bit ({n_mem} equal the first run's state in memory)")
+        del payload, trainer
+        reset_counts()
+        resumed.train()
+        resume_launches = counts()
+        check_trainer_steps("trainer-resume", resumed.cfg, resume_steps,
+                            TRAINER_RESUME)
+        ckpts = CheckpointManager(str(out / "checkpoints")).steps()
+        if resumed.state.step != n_iters or ckpts[-1] != n_iters:
+            raise AssertionError(f"resume ended at step "
+                                 f"{resumed.state.step}, checkpoints {ckpts}")
+        log(f"[trainer-resume] {TRAINER_RESUME} more iterations to step "
+            f"{resumed.state.step}, checkpoints {ckpts}, launches "
+            f"{resume_launches}")
+        # the same step on the run's last batch beside loader threads:
+        # none; 1 (the interpreter lock shared with one mapper thread); one
+        # fewer than the cores (the launching thread keeps a core); and the
+        # config's, as in the trainer
+        step, batch = make_train_step(resumed.cfg), resume_steps[-1][2]
+        cores = len(os.sched_getaffinity(0))
+        step_ms = {}
+        for workers in sorted({0, 1, cores - 1,
+                               cfg.DATALOADER.NUM_WORKERS}):
+            with loader_running(cfg, workers):
+                step_ms[workers] = steady_state_timer(
+                    step, (resumed.state, batch), warmup=1,
+                    iters=STEP_ITERS) * 1e3
+        del resumed, resume_steps, batch
+        if DEVICE != "cpu":
+            torch.cuda.empty_cache()
+
+        mapper_ms, stages_ms, rate = loader_rates(cfg, LOADER_BATCHES)
+        rest_ms = [t - w - c for t, w, c in zip(iter_ms, wait_ms, save_ms)]
+        steady = [t - c for t, c in zip(iter_ms[1:], save_ms[1:])]
+        fmt = ", ".join
+        log(f"[trainer] per iteration (ms, host clock): in all "
+            f"[{fmt(f'{t:.1f}' for t in iter_ms)}]; waiting on next(loader) "
+            f"[{fmt(f'{t:.1f}' for t in wait_ms)}]; writing a checkpoint "
+            f"[{fmt(f'{t:.1f}' for t in save_ms)}]; the step and the rest "
+            f"[{fmt(f'{t:.1f}' for t in rest_ms)}]. After the first, "
+            f"without the checkpoint writes: {np.mean(steady):.1f} ms "
+            f"(min {min(steady):.1f}, max {max(steady):.1f})")
+        log(f"[trainer] the step on the run's last batch ({STEP_ITERS} "
+            f"after 1 warmup, synchronised after each): " + fmt(
+                f"{ms:.1f} ms beside " + (f"a loader of {k} thread"
+                                          f"{'s' if k > 1 else ''}" if k
+                                          else "no loader")
+                for k, ms in step_ms.items()))
+        log(f"[trainer] mapper on one thread {mapper_ms:.1f} ms/sample: "
+            + fmt(f"{k} {v:.1f}" for k, v in stages_ms.items())
+            + f", other {mapper_ms - sum(stages_ms.values()):.1f}; host "
+            f"os.cpu_count() {os.cpu_count()}, usable cores {cores}; loader {rate:.2f} samples/s "
+            f"with {cfg.DATALOADER.NUM_WORKERS} threads and nothing else "
+            f"running, against the {b * 1e3 / step_ms[0]:.2f} the step "
+            f"alone consumes; peak allocated {peak:.3f} GiB ({smi})")
+    return launches, resume_launches
+
+
 def main() -> int:
     import mgnet_tpu_torch
 
@@ -1253,11 +1667,14 @@ def main() -> int:
         if not row["launches"]:
             raise AssertionError(f"{row['name']}: no launch on its path")
     train_paths, frame_paths = phase_configs(smi)
+    trainer_paths = dict(zip(("trainer", "trainer-resume"),
+                             phase_trainer(smi)))
     rows[0]["launches_by_path"] = {"serving": rows[0]["launches"],
                                    **frame_paths}
     for row in rows[1:]:
         row["launches_by_path"] = {"train": row["launches"], **{
-            tag: n[row["name"]] for tag, n in train_paths.items()}}
+            tag: n[row["name"]] for tag, n in
+            {**train_paths, **trainer_paths}.items()}}
     log(f"[done] elapsed {time.perf_counter() - T_START:.1f} s")
     print(smi)
     print(json.dumps({"kernels": rows}))

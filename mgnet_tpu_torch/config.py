@@ -13,11 +13,11 @@ raise as unknown, with a message that names them.
 
 Keys carried so that the shipped YAML files load, which no code of the
 port reads yet, with the slice of ROADMAP.md's Queue 1 that will read
-them: ``DATASETS.*``, ``DATALOADER.*`` and the augmentation keys of
-``INPUT.*`` (the data pipeline, item 4); ``TEST.*`` (evaluation, item 5,
-and ``TEST.MSC_FLIP_EVAL`` with the inference tools, item 8);
-``MODEL.WEIGHTS`` (the trainer, item 7); ``MESH.*`` (distribution,
-item 9).
+them: ``TEST.*`` but ``TEST.EVAL_PERIOD`` (evaluation, and
+``TEST.MSC_FLIP_EVAL`` with the inference tools); ``MESH.*``
+(distribution). The trainer (``train/trainer.py``) reads ``DATASETS.*``,
+``DATALOADER.*``, ``INPUT.*``, ``MODEL.WEIGHTS``, ``OUTPUT_DIR`` and
+``TEST.EVAL_PERIOD``, which must be 0 until evaluation is ported.
 
 The card's machine has no PyYAML, so the files are read by ``parse_yaml``,
 a reader of the subset the shipped configs use: nested block maps by

@@ -1,22 +1,30 @@
-"""Synthetic training batch made from a seed (numpy, host side).
+"""Synthetic training data made from a seed (numpy, host side).
 
-A copy of ``mgnet_tpu/data/synthetic.py::synthetic_train_batch`` for the
-joint model (both task branches always): random
-images with context frames shifted by +-2 columns, a plausible pinhole
-camera, a full reprojection mask, and panoptic targets of two thing
-instances on one stuff class per image. The real data mapper is a later
-slice of the port.
+``synthetic_train_batch`` is a copy of
+``mgnet_tpu/data/synthetic.py::synthetic_train_batch`` for the joint model
+(both task branches always): random images with context frames shifted by
++-2 columns, a plausible pinhole camera, a full reprojection mask, and
+panoptic targets of two thing instances on one stuff class per image.
+
+``write_cityscapes_tree`` writes a small Cityscapes-layout panoptic tree to
+disk, for the datasets' path through ``data/cityscapes.py``,
+``data/mapper.py`` and ``data/loader.py``.
 """
 
 from __future__ import annotations
 
+import json
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict
 
 import numpy as np
 
+from mgnet_tpu_torch.data.image_io import write_png
+from mgnet_tpu_torch.data.mapper import id2rgb
 from mgnet_tpu_torch.data.target_generator import PanopticTargetGenerator
 
-__all__ = ["synthetic_train_batch"]
+__all__ = ["synthetic_train_batch", "write_cityscapes_tree"]
 
 
 def synthetic_train_batch(
@@ -73,3 +81,69 @@ def synthetic_train_batch(
             acc[k].append(t[k])
     out.update({k: np.stack(v) for k, v in acc.items()})
     return out
+
+
+def _tree_frame(rng: np.random.Generator, h: int, w: int):
+    """A frame of smooth colour gradients under noise, and its two sequence
+    neighbours: the frame shifted by -/+ 8 columns."""
+    gy, gx = np.mgrid[0:h, 0:w].astype(np.float32)
+    phase = rng.uniform(0, 2 * np.pi, 3)
+    base = np.stack([127 + 100 * np.sin(gx / (w / (3 + c)) + gy / h * 4
+                                        + phase[c]) for c in range(3)], -1)
+    img = np.clip(base + rng.normal(0, 12, (h, w, 3)), 0, 255).astype(
+        np.uint8)
+    return img, np.roll(img, -8, axis=1), np.roll(img, 8, axis=1)
+
+
+def write_cityscapes_tree(root: str, frames: int, height: int, width: int,
+                          seed: int = 0) -> Dict[str, np.ndarray]:
+    """Write a Cityscapes-layout panoptic training tree under ``root`` (the
+    layout ``register_all_cityscapes_scene_seg(root)`` reads as
+    ``cityscapes_fine_scene_seg_train``): ``frames`` frames of height x
+    width, each with its -/+1 sequence frames, a panoptic PNG of road and
+    sky with a person and two cars, a camera JSON, and the panoptic JSON.
+    Every PNG goes through ``write_png``. Returns {path: array written}."""
+    city = "synth"
+    base = os.path.join(root, "cityscapes")
+    img_dir = os.path.join(base, "leftImg8bit", "train", city)
+    seq_dir = os.path.join(base, "leftImg8bit_sequence", "train", city)
+    cam_dir = os.path.join(base, "camera", "train", city)
+    gt_dir = os.path.join(base, "gtFine", "cityscapes_panoptic_train")
+    for d in (img_dir, seq_dir, cam_dir, gt_dir):
+        os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    h, w = height, width
+    written, anns = {}, []
+    for f in range(frames):
+        idx = 19 + 10 * f
+        stem = f"{city}_000000_{idx:06d}"
+        cur, prev, nxt = _tree_frame(rng, h, w)
+        written[os.path.join(img_dir, f"{stem}_leftImg8bit.png")] = cur
+        for i, a in ((idx - 1, prev), (idx + 1, nxt)):
+            written[os.path.join(
+                seq_dir, f"{city}_000000_{i:06d}_leftImg8bit.png")] = a
+        pan = np.full((h, w), 7000, np.int64)               # road
+        pan[: h // 3] = 23000                                 # sky
+        y0 = int(rng.integers(h // 3, h - h // 4))            # a person
+        pan[y0:y0 + h // 5, w // 2 - w // 20:w // 2 + w // 20] = 24001
+        for k in (1, 2):                 # a car in each half of the frame
+            y0 = int(rng.integers(h // 3, h - h // 4))
+            x0 = int(rng.integers((k - 1) * w // 2, k * w // 2 - w // 6))
+            pan[y0:y0 + h // 6, x0:x0 + w // 6] = 26000 + k
+        written[os.path.join(gt_dir, f"{stem}_gtFine_panoptic.png")] = \
+            id2rgb(pan)
+        anns.append({"image_id": stem,
+                     "file_name": f"{stem}_gtFine_panoptic.png",
+                     "segments_info": [
+                         {"id": i, "category_id": i // 1000, "iscrowd": 0}
+                         for i in (7000, 23000, 24001, 26001, 26002)]})
+        with open(os.path.join(cam_dir, f"{stem}_camera.json"), "w") as fh:
+            json.dump({"intrinsic": {"fx": 1.1047 * w + f, "fy": 1.1061 * w,
+                                     "u0": 0.5356 * w, "v0": 0.5011 * h},
+                       "extrinsic": {"baseline": 0.209313, "z": 1.22}}, fh)
+    with open(os.path.join(base, "gtFine",
+                           "cityscapes_panoptic_train.json"), "w") as fh:
+        json.dump({"annotations": anns, "categories": []}, fh)
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda kv: write_png(*kv), written.items()))
+    return written

@@ -1,4 +1,5 @@
-"""Build and load the package's hand-written CUDA kernels.
+"""Build and load the package's hand-written CUDA kernels, and the data
+pipeline's host library.
 
 Every ``csrc/*.cu`` file is compiled by its own ``nvcc -c`` process, all
 started together, and one more ``nvcc`` call links the objects into a
@@ -12,6 +13,17 @@ one FMA: the kernels evaluate their arithmetic in the order of their plain
 PyTorch versions, one rounding per operation, and are held to them
 bit for bit.
 
+``build_host`` compiles the data pipeline's C++ (``data/csrc/*.cpp``:
+PNG unfiltering and Pillow-exact resampling) with ``g++`` alone, no
+``-march=native`` (a library built on one host loads on another) and no
+``-l`` flag, into the same directory under the same hashed naming.
+``-ffp-contract=off`` keeps its double coefficient arithmetic rounding as
+Pillow's and the numpy versions' does.
+
+Both builds write to a name unique to the process and thread, then
+``os.replace`` it onto the final name: processes or threads that build at
+once each produce a whole library, and the last rename wins.
+
 Nothing here runs at import time: the first kernel launch builds.
 """
 
@@ -23,10 +35,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
-__all__ = ["build", "load_library"]
+__all__ = ["build", "build_host", "load_library"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "ops" / "csrc"
@@ -35,6 +48,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
 )
+HOST_CSRC_DIR = _PKG / "data" / "csrc"
+GXX_FLAGS = ("-O3", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC")
 
 
 def _nvcc() -> str:
@@ -50,8 +65,31 @@ def _nvcc() -> str:
         "CUDA kernels of mgnet_tpu_torch cannot be built")
 
 
+def _gxx() -> str:
+    found = shutil.which("g++")
+    if found:
+        return found
+    raise RuntimeError("g++ not found on PATH: the host library of "
+                       "mgnet_tpu_torch.data cannot be built")
+
+
 def _sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _tag(flags, sources: list[Path]) -> str:
+    """A hash of the flags and the sources' names and bytes."""
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for src in sources:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return digest.hexdigest()[:16]
+
+
+def _private(path: Path) -> Path:
+    """A temporary name beside ``path`` that no other process or thread
+    uses."""
+    return path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
 
 
 def _run(cmds: list[list[str]]) -> None:
@@ -63,7 +101,8 @@ def _run(cmds: list[list[str]]) -> None:
     for cmd, proc in zip(cmds, procs):
         out, err = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"nvcc failed (rc={proc.returncode}):\n"
+            failed.append(f"{Path(cmd[0]).name} failed "
+                          f"(rc={proc.returncode}):\n"
                           f"{' '.join(cmd)}\n{out}\n{err}")
     if failed:
         raise RuntimeError("\n".join(failed))
@@ -76,11 +115,7 @@ def build() -> tuple[Path, float]:
     already).
     """
     sources = _sources()
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
-    tag = digest.hexdigest()[:16]
+    tag = _tag(NVCC_FLAGS, sources)
     lib = BUILD_DIR / f"libmgnet_kernels_{tag}.so"
     if lib.is_file():
         return lib, 0.0
@@ -88,7 +123,7 @@ def build() -> tuple[Path, float]:
     nvcc = _nvcc()
     objs = [BUILD_DIR / f"{src.stem}_{tag}.{os.getpid()}.o"
             for src in sources]
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    tmp = _private(lib)
     t0 = time.perf_counter()
     try:
         _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
@@ -99,6 +134,26 @@ def build() -> tuple[Path, float]:
         for obj in objs:
             obj.unlink(missing_ok=True)
     os.replace(tmp, lib)
+    return lib, time.perf_counter() - t0
+
+
+def build_host() -> tuple[Path, float]:
+    """Compile the data pipeline's C++ sources with g++ if needed.
+
+    Returns (library path, seconds spent compiling; 0.0 if it was built
+    already). A failed build raises."""
+    sources = sorted(HOST_CSRC_DIR.glob("*.cpp"))
+    lib = BUILD_DIR / f"libmgnet_image_ops_{_tag(GXX_FLAGS, sources)}.so"
+    if lib.is_file():
+        return lib, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = _private(lib)
+    t0 = time.perf_counter()
+    try:
+        _run([[_gxx(), *GXX_FLAGS, "-o", str(tmp), *map(str, sources)]])
+        os.replace(tmp, lib)
+    finally:
+        tmp.unlink(missing_ok=True)
     return lib, time.perf_counter() - t0
 
 

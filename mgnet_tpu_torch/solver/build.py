@@ -150,6 +150,26 @@ class Optimizer:
                    if kind != "SGD" else [])
         self.count = 0
 
+    def state_dict(self) -> Dict:
+        """The moments and the update count, with the parameter names they
+        belong to."""
+        return {"names": list(self.names), "mu": list(self.mu),
+                "nu": list(self.nu), "count": self.count}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict) -> None:
+        """Copy a ``state_dict`` into the moments in place (each keeps its
+        device); raises unless the parameter names and shapes agree."""
+        if list(state["names"]) != self.names or len(state["mu"]) != len(
+                self.mu) or len(state["nu"]) != len(self.nu):
+            raise ValueError("optimizer state is for other parameters")
+        for dst, src in zip(self.mu + self.nu, state["mu"] + state["nu"]):
+            if dst.shape != src.shape:
+                raise ValueError(f"optimizer moment of shape "
+                                 f"{tuple(src.shape)} for {tuple(dst.shape)}")
+            dst.copy_(src)
+        self.count = int(state["count"])
+
     def zero_grad(self) -> None:
         for p in self.params:
             p.grad = None

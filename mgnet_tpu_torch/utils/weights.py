@@ -16,6 +16,10 @@ The port names its modules after that tree, so a key maps by rule:
 ``jax_key`` and ``to_jax_arrays`` go the other way, so that tests can hold
 the port's parameters and gradients against the JAX package's, leaf by
 leaf.
+
+``load_pretrained_npz`` grafts an npz of such keys (the ImageNet init,
+``weights/imagenet_weights.npz``) into a module wherever key and shape
+match, as ``mgnet_tpu/utils/weights.py::load_pretrained_npz`` does.
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["jax_key", "load_jax_params", "to_jax_arrays", "torch_key"]
+__all__ = ["jax_key", "load_jax_params", "load_pretrained_npz",
+           "to_jax_arrays", "torch_key"]
 
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
          "mean": "running_mean", "var": "running_var",
@@ -104,3 +109,28 @@ def load_jax_params(flat: Mapping[str, np.ndarray],
             f"{len(bad_shape)} shape mismatches {bad_shape[:5]}, "
             f"{len(unset)} module entries unset {unset[:5]}")
     return out
+
+
+@torch.no_grad()
+def load_pretrained_npz(npz_path: str, module: nn.Module) -> Dict[str, int]:
+    """Copy the npz's arrays into ``module``'s parameters and buffers
+    wherever the key and the shape (in the port's layout) match; the rest
+    keep their values. The npz keys are rooted at the model
+    (``backbone/...``); a ``TrainParams`` roots them under ``model/``, and
+    both rootings are tried. Returns {"matched", "skipped"}, counted as the
+    JAX function counts them."""
+    target = module.state_dict()
+    by_key = {jax_key(name): name for name in target}
+    matched, skipped = 0, 0
+    with np.load(npz_path) as data:
+        for k in data.files:
+            name = by_key.get(k, by_key.get("model/" + k))
+            v = torch.from_numpy(np.asarray(data[k], np.float32))
+            if k.endswith("/kernel") and v.ndim == 4:
+                v = v.permute(3, 2, 0, 1)
+            if name is None or tuple(v.shape) != tuple(target[name].shape):
+                skipped += 1
+                continue
+            target[name].copy_(v)
+            matched += 1
+    return {"matched": matched, "skipped": skipped}

@@ -9,6 +9,8 @@ without it:
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -261,3 +263,98 @@ def test_remat_step_relaunches_the_forward_kernels():
     b = remat_state.params.state_dict()
     stats = [k for k in a if k.endswith(("running_mean", "running_var"))]
     assert stats and all(torch.equal(a[k], b[k]) for k in stats)
+
+
+ROOT = Path(__file__).resolve().parent.parent
+FINE = str(ROOT / "configs" / "MGNet-Cityscapes-Fine.yaml")
+
+
+def _mini_opts(out):
+    opts = {"MODEL.GCM.GCM_CHANNELS": 32, "SOLVER.IMS_PER_BATCH": 2,
+            "SOLVER.MAX_ITER": 1, "TEST.EVAL_PERIOD": 0,
+            "MODEL.SEM_SEG_HEAD.OHEM_N_MIN": 2000, "OUTPUT_DIR": str(out),
+            "WRITE_OUTPUT_TO_SUBDIR": False, "MODEL.WEIGHTS": "",
+            "INPUT.MIN_SIZE_TRAIN": (96, 128), "INPUT.MAX_SIZE_TRAIN": 512,
+            "INPUT.CROP.SIZE": (64, 96), "DATALOADER.NUM_WORKERS": 2}
+    for head in ("SEM_SEG_HEAD", "INS_EMBED_HEAD", "DEPTH_HEAD"):
+        opts.update({f"MODEL.{head}.HEAD_CHANNELS": 32,
+                     f"MODEL.{head}.FFM_CHANNELS": 48,
+                     f"MODEL.{head}.ARM_CHANNELS": [32, 32],
+                     f"MODEL.{head}.REFINE_CHANNELS": [32, 32]})
+    return [str(x) for kv in opts.items() for x in kv]
+
+
+@pytest.mark.gpu
+def test_loader_batch_reaches_the_card_pinned(tmp_path):
+    """TrainLoader(pin_memory=True) yields page-locked tensors; to_device
+    puts each on the card with its dtype and values."""
+    _need_card()
+    import numpy as np
+
+    from mgnet_tpu_torch.config import load_config
+    from mgnet_tpu_torch.data import (
+        DatasetCatalog,
+        TrainDatasetMapper,
+        TrainLoader,
+        collate_batch,
+        register_all_cityscapes_scene_seg,
+        to_device,
+        write_cityscapes_tree,
+    )
+    from mgnet_tpu_torch.tools import train_net
+
+    write_cityscapes_tree(str(tmp_path), 3, 128, 256)
+    DatasetCatalog.clear()
+    register_all_cityscapes_scene_seg(str(tmp_path))
+    args = train_net.parse_args(["--config-file", FINE,
+                                 *_mini_opts(tmp_path / "out")])
+    cfg = load_config(args.config_file, args.opts)
+    dicts = DatasetCatalog.get(cfg.DATASETS.TRAIN[0])
+    mapper = TrainDatasetMapper(cfg)
+    loader = TrainLoader(dicts, mapper, batch_size=2, seed=3,
+                         num_workers=2, pin_memory=True)
+    batch = next(iter(loader))
+    loader.close()
+    samples = [mapper(dicts[j], rng=np.random.default_rng((3, 0, j)))
+               for j in np.random.default_rng(3).permutation(len(dicts))[:2]]
+    for s in samples:
+        s.pop("image_id")
+    want = collate_batch(samples)
+    on_card = to_device(batch, "cuda")
+    torch.cuda.synchronize()
+    assert batch.keys() == want.keys()
+    for k, t in batch.items():
+        assert t.is_pinned(), k
+        assert on_card[k].is_cuda and on_card[k].dtype == t.dtype, k
+        assert np.array_equal(on_card[k].cpu().numpy(), want[k]), k
+    DatasetCatalog.clear()
+
+
+@pytest.mark.gpu
+def test_trainer_step_on_a_mini_tree_launches_the_kernels(tmp_path):
+    """One bf16 Trainer iteration from a tree on disk through train_net:
+    the warp, SSIM forward and SSIM backward launch 6 / 8 / 6 times, the
+    losses are finite, and the run ends with model_final."""
+    _need_card()
+    import json
+
+    from mgnet_tpu_torch.data import DatasetCatalog, write_cityscapes_tree
+    from mgnet_tpu_torch.tools import train_net
+
+    write_cityscapes_tree(str(tmp_path), 3, 128, 256)
+    DatasetCatalog.clear()
+    before = (warp_bilinear.launches, ssim_residual_fwd.launches,
+              ssim_residual_bwd.launches)
+    trainer = train_net.main([
+        "--config-file", FINE, "--data-root", str(tmp_path),
+        *_mini_opts(tmp_path / "out")])
+    torch.cuda.synchronize()
+    launched = tuple(n - m for n, m in zip(
+        (warp_bilinear.launches, ssim_residual_fwd.launches,
+         ssim_residual_bwd.launches), before))
+    assert launched == (6, 8, 6) and trainer.state.step == 1
+    line = json.loads((tmp_path / "out" / "metrics.json").read_text()
+                      .splitlines()[0])
+    assert all(torch.isfinite(torch.tensor(v)) for v in line.values())
+    assert (tmp_path / "out" / "model_final" / "params.pt").is_file()
+    DatasetCatalog.clear()
