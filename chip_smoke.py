@@ -76,8 +76,10 @@ Phases, each printing its findings:
      MAX_ITER 4, CHECKPOINT_PERIOD 2, TEST.EVAL_PERIOD 0: every step's
      losses finite and its launches equal to expected_launches(cfg), the
      npz graft matched, checkpoints 2 and 4 and model_final written; a
-     second Trainer with --resume and MAX_ITER 6 whose restored state
-     equals the step-4 checkpoint bit for bit, then 2 more iterations;
+     second Trainer with --resume, MAX_ITER 6 and TEST.EVAL_PERIOD 6 whose
+     restored state equals the step-4 checkpoint bit for bit, then 2 more
+     iterations, the second ending in Trainer.test over the tree's val
+     split (its metrics finite in metrics.json, its seconds apart);
      ms/iteration, the wait on the loader and the checkpoint writes apart;
      the same step on one batch with no loader running and while a loader
      of 1 thread, of one thread fewer than the host's cores, and of
@@ -85,7 +87,25 @@ Phases, each printing its findings:
      by stage (PNG read, resize + crop, colour jitter, targets) on one
      thread, the host's core count, the loader's samples/s and peak
      memory;
-  9. a JSON line of kernel numbers (with each path's launches), the total
+  9. evaluation: first (after phase 5, so that a fault shows early), the
+     f32 evaluate_dataset on the card against the CPU on a small val tree
+     (narrow widths): panoptic maps on >= 99.9% of pixels, metrics within
+     1e-4, 3 center_argmin launches; then, on the trainer tree's val split
+     (6 frames at 1024x2048 and one at 1000x2000: a batch of 4, a tail of
+     2 and a second bucket key of 1, with 16-bit disparity PNGs),
+     train_net --eval-only on the Fine YAML as it is (TEST.IMS_PER_BATCH
+     4, NUM_WORKERS 10, bf16) with the trainer's model_final, with
+     TEST.EVAL_INSTANCE False (also with 1 and cores - 1 mapping threads)
+     and then True: the JAX evaluators' key set in metrics.json, every
+     value finite, center_argmin launches equal to the device batches, the
+     last center_argmin inputs of each fusion shape held to
+     center_argmin_reference bit for bit (with the kept pairs, as in
+     phase 3), images/s, peak memory, ms per device batch by stage (eval
+     step, post-processing, copy to the host) and host ms per sample in
+     each evaluator and the GT PNG reads; then the multi-scale + flip TTA
+     of the pseudo-label YAML (panoptic only) from the ImageNet npz with
+     seeded heads, its images/s and peak memory;
+  10. a JSON line of kernel numbers (with each path's launches), the total
      elapsed seconds, nvidia-smi's line, and as the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -106,11 +126,13 @@ import contextlib
 import ctypes
 import itertools
 import json
+import math
 import os
 import subprocess
 import sys
 import tempfile
 import threading
+from collections import defaultdict
 from pathlib import Path
 
 import numpy as np
@@ -119,6 +141,7 @@ import torch
 import torch.nn.functional as F
 
 import mgnet_tpu_torch.data.mapper as mapper_module
+import mgnet_tpu_torch.evaluation.depth as eval_depth
 import mgnet_tpu_torch.geometry.image as geometry_image
 import mgnet_tpu_torch.ops.ssim as ops_ssim
 import mgnet_tpu_torch.train.trainer as trainer_module
@@ -132,12 +155,20 @@ from mgnet_tpu_torch.data import (
     CITYSCAPES_SCENE_SEG_CATEGORIES,
     DatasetCatalog,
     Metadata,
+    MetadataCatalog,
     TrainDatasetMapper,
     TrainLoader,
     build_meta,
     read_png,
+    register_all_cityscapes_scene_seg,
     synthetic_train_batch,
     write_cityscapes_tree,
+)
+from mgnet_tpu_torch.evaluation import (
+    DepthEvaluator,
+    InstanceAPEvaluator,
+    PanopticEvaluator,
+    SemSegEvaluator,
 )
 from mgnet_tpu_torch.data.image_io import (
     png_filter_reference,
@@ -174,7 +205,7 @@ from mgnet_tpu_torch.postprocessing.panoptic import (
 from mgnet_tpu_torch.tools import train_net
 from mgnet_tpu_torch.train import create_train_state, make_train_step
 from mgnet_tpu_torch.train.step import normalize_images
-from mgnet_tpu_torch.train.trainer import Trainer
+from mgnet_tpu_torch.train.trainer import Trainer, evaluate_dataset
 from mgnet_tpu_torch.utils import load_jax_params
 from mgnet_tpu_torch.utils.checkpoint import CheckpointManager
 from mgnet_tpu_torch.utils.profiling import steady_state_timer
@@ -204,6 +235,19 @@ TREE_FRAMES, TREE_H, TREE_W = 8, 1024, 2048
 TRAINER_ITERS, TRAINER_RESUME, LOADER_BATCHES = 4, 2, 2
 STEP_ITERS = 2
 TRAINER_OPTS: tuple = ()
+# the eval phase: the trainer tree's val split, 6 frames of the tree's
+# size and one of 1000x2000 (a batch of TEST.IMS_PER_BATCH 4, a pow2 tail
+# of 2, and a second bucket key whose fusion runs at a size that is not a
+# multiple of the 32 x 32 tile); EVAL_OPTS are extra overrides of the
+# eval-only runs (none on the card); the card against the CPU on a small
+# tree of SMALL_VAL frames at narrow widths
+VAL_SIZES = ((TREE_H, TREE_W),) * 6 + ((1000, 2000),)
+EVAL_OPTS: tuple = ()
+SMALL_VAL = ((128, 256),) * 6 + ((120, 240),)
+PANOPTIC_KEYS = ["PQ", "SQ", "RQ", "PQ_th", "SQ_th", "RQ_th", "PQ_st",
+                 "SQ_st", "RQ_st"]
+DEPTH_KEYS = ["Abs Rel", "Sq Rel", "RMSE", "RMSE log", "δ < 1.25",
+              "δ < 1.25²", "δ < 1.25³"]
 SEED = 0
 DEVICE = "cuda"
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 FLOP/s (an
@@ -1323,11 +1367,12 @@ def host_ops_check(written, h, w):
                 f"{ref_ms:.1f} ms (host clock)")
 
 
-def trainer_argv(root: Path, out: Path, iters: int, *flags):
+def trainer_argv(root: Path, out: Path, iters: int, *flags,
+                 eval_period: int = 0):
     return ["--config-file", str(CONFIG_DIR / "MGNet-Cityscapes-Fine.yaml"),
             "--data-root", str(root), "--device", DEVICE, *flags,
             "SOLVER.MAX_ITER", str(iters), "SOLVER.CHECKPOINT_PERIOD", "2",
-            "TEST.EVAL_PERIOD", "0", "OUTPUT_DIR", str(out),
+            "TEST.EVAL_PERIOD", str(eval_period), "OUTPUT_DIR", str(out),
             "WRITE_OUTPUT_TO_SUBDIR", "False", "MODEL.WEIGHTS",
             str(ROOT / "weights" / "imagenet_weights.npz"), *TRAINER_OPTS]
 
@@ -1514,131 +1559,479 @@ def loader_running(cfg, workers: int):
             from failed[0]
 
 
-def phase_trainer(smi):
-    """tools/train_net.py from the Fine YAML on a tree on disk: the host
-    library checked, TRAINER_ITERS trainer iterations at the recipe's
-    batch with checkpoints, then a resume for TRAINER_RESUME more; returns
-    each run's kernel launches (counts from 0 just before it)."""
-    with tempfile.TemporaryDirectory(prefix="mgnet_trainer_") as tmp:
-        root, out = Path(tmp), Path(tmp) / "out"
-        t0 = time.perf_counter()
-        written = {Path(p): a for p, a in write_cityscapes_tree(
-            str(root), TREE_FRAMES, TREE_H, TREE_W, seed=SEED).items()}
-        log(f"[trainer] wrote {len(written)} PNGs ({TREE_FRAMES} frames at "
-            f"{TREE_H}x{TREE_W}, -/+1 sequence frames, panoptic labels) in "
-            f"{time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        for path, arr in written.items():
-            if not np.array_equal(read_png(path), arr):
-                raise AssertionError(f"{path}: read_png differs from what "
-                                     "write_png wrote")
-        log(f"[trainer] read_png of all {len(written)} equals what was "
-            f"written ({time.perf_counter() - t0:.1f} s, one thread)")
-        host_ops_check(written, TREE_H, TREE_W)
+def phase_trainer(smi, root: Path):
+    """tools/train_net.py from the Fine YAML on a tree written under
+    ``root`` (with its val split): the host library checked,
+    TRAINER_ITERS trainer iterations at the recipe's batch with
+    checkpoints, then a resume for TRAINER_RESUME more whose last ends in
+    Trainer.test; returns each run's kernel launches (counts from 0 just
+    before it), the resume's center_argmin launches included."""
+    out = root / "out"
+    t0 = time.perf_counter()
+    written = {Path(p): a for p, a in write_cityscapes_tree(
+        str(root), TREE_FRAMES, TREE_H, TREE_W, seed=SEED,
+        val_sizes=VAL_SIZES).items()}
+    log(f"[trainer] wrote {len(written)} PNGs ({TREE_FRAMES} frames at "
+        f"{TREE_H}x{TREE_W}, -/+1 sequence frames, panoptic labels; val "
+        f"frames {list(VAL_SIZES)} with panoptic labels and 16-bit "
+        f"disparity) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for path, arr in written.items():
+        if not np.array_equal(read_png(path), arr):
+            raise AssertionError(f"{path}: read_png differs from what "
+                                 "write_png wrote")
+    log(f"[trainer] read_png of all {len(written)} equals what was "
+        f"written ({time.perf_counter() - t0:.1f} s, one thread)")
+    host_ops_check(written, TREE_H, TREE_W)
 
-        if DEVICE != "cpu":
-            torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        t0 = time.perf_counter()
-        with recorded_steps() as steps:
-            trainer = train_net.main(trainer_argv(root, out, TRAINER_ITERS))
-        wall = time.perf_counter() - t0
-        launches = counts()
-        cfg = trainer.cfg
-        b = cfg.SOLVER.IMS_PER_BATCH
-        crop = tuple(cfg.INPUT.CROP.SIZE)
-        log(f"[trainer] train_net on {cfg.DATASETS.TRAIN[0]}: batch "
-            f"{b} of {crop[0]}x{crop[1]} crops, {cfg.MODEL.COMPUTE_DTYPE}, "
-            f"{cfg.DATALOADER.NUM_WORKERS} loader threads, npz graft "
-            f"{trainer.pretrained}; {TRAINER_ITERS} iterations, "
-            f"{wall:.1f} s with set-up")
-        check_trainer_steps("trainer", cfg, steps, TRAINER_ITERS)
-        if not trainer.pretrained or trainer.pretrained["matched"] <= 0:
-            raise AssertionError(f"npz graft matched {trainer.pretrained}")
-        ckpts = CheckpointManager(str(out / "checkpoints")).steps()
-        final = out / "model_final" / "params.pt"
-        log(f"[trainer] checkpoints {ckpts}, model_final "
-            f"{final.is_file()}, launches {launches}")
-        if ckpts != [2, TRAINER_ITERS] or not final.is_file():
-            raise AssertionError("missing checkpoints or model_final")
-        iter_ms = [s * 1e3 for s in trainer.iter_seconds]
-        wait_ms = [s * 1e3 for s in trainer.data_seconds]
-        save_ms = [s * 1e3 for s in trainer.save_seconds]
-        peak = (torch.cuda.max_memory_allocated() / 2**30
-                if DEVICE != "cpu" else float("nan"))
+    if DEVICE != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with recorded_steps() as steps:
+        trainer = train_net.main(trainer_argv(root, out, TRAINER_ITERS))
+    wall = time.perf_counter() - t0
+    launches = counts()
+    cfg = trainer.cfg
+    b = cfg.SOLVER.IMS_PER_BATCH
+    crop = tuple(cfg.INPUT.CROP.SIZE)
+    log(f"[trainer] train_net on {cfg.DATASETS.TRAIN[0]}: batch "
+        f"{b} of {crop[0]}x{crop[1]} crops, {cfg.MODEL.COMPUTE_DTYPE}, "
+        f"{cfg.DATALOADER.NUM_WORKERS} loader threads, npz graft "
+        f"{trainer.pretrained}; {TRAINER_ITERS} iterations, "
+        f"{wall:.1f} s with set-up")
+    check_trainer_steps("trainer", cfg, steps, TRAINER_ITERS)
+    if not trainer.pretrained or trainer.pretrained["matched"] <= 0:
+        raise AssertionError(f"npz graft matched {trainer.pretrained}")
+    ckpts = CheckpointManager(str(out / "checkpoints")).steps()
+    final = out / "model_final" / "params.pt"
+    log(f"[trainer] checkpoints {ckpts}, model_final "
+        f"{final.is_file()}, launches {launches}")
+    if ckpts != [2, TRAINER_ITERS] or not final.is_file():
+        raise AssertionError("missing checkpoints or model_final")
+    iter_ms = [s * 1e3 for s in trainer.iter_seconds]
+    wait_ms = [s * 1e3 for s in trainer.data_seconds]
+    save_ms = [s * 1e3 for s in trainer.save_seconds]
+    peak = (torch.cuda.max_memory_allocated() / 2**30
+            if DEVICE != "cpu" else float("nan"))
 
-        payload = torch.load(out / "checkpoints" / f"{TRAINER_ITERS}.pt",
-                             map_location="cpu", weights_only=True)
-        n_iters = TRAINER_ITERS + TRAINER_RESUME
-        args = train_net.parse_args(trainer_argv(root, out, n_iters,
-                                                 "--resume"))
-        with recorded_steps() as resume_steps:
-            resumed = Trainer(train_net.setup(args), device=DEVICE)
-        resumed.resume_or_load(resume=True)
-        n = same_state(resumed.state, payload)
-        n_mem = same_state(resumed.state, {
-            "params": trainer.state.params.state_dict(),
-            "optimizer": trainer.state.optimizer.state_dict(),
-            "step": trainer.state.step})
-        log(f"[trainer-resume] restored step {resumed.state.step}: {n} "
-            f"tensors (parameters, BN statistics, Adam moments) and count "
-            f"{resumed.state.optimizer.count} equal the checkpoint bit for "
-            f"bit ({n_mem} equal the first run's state in memory)")
-        del payload, trainer
-        reset_counts()
-        resumed.train()
-        resume_launches = counts()
-        check_trainer_steps("trainer-resume", resumed.cfg, resume_steps,
-                            TRAINER_RESUME)
-        ckpts = CheckpointManager(str(out / "checkpoints")).steps()
-        if resumed.state.step != n_iters or ckpts[-1] != n_iters:
-            raise AssertionError(f"resume ended at step "
-                                 f"{resumed.state.step}, checkpoints {ckpts}")
-        log(f"[trainer-resume] {TRAINER_RESUME} more iterations to step "
-            f"{resumed.state.step}, checkpoints {ckpts}, launches "
-            f"{resume_launches}")
-        # the same step on the run's last batch beside loader threads:
-        # none; 1 (the interpreter lock shared with one mapper thread); one
-        # fewer than the cores (the launching thread keeps a core); and the
-        # config's, as in the trainer
-        step, batch = make_train_step(resumed.cfg), resume_steps[-1][2]
-        cores = len(os.sched_getaffinity(0))
-        step_ms = {}
-        for workers in sorted({0, 1, cores - 1,
-                               cfg.DATALOADER.NUM_WORKERS}):
-            with loader_running(cfg, workers):
-                step_ms[workers] = steady_state_timer(
-                    step, (resumed.state, batch), warmup=1,
-                    iters=STEP_ITERS) * 1e3
-        del resumed, resume_steps, batch
-        if DEVICE != "cpu":
-            torch.cuda.empty_cache()
+    payload = torch.load(out / "checkpoints" / f"{TRAINER_ITERS}.pt",
+                         map_location="cpu", weights_only=True)
+    n_iters = TRAINER_ITERS + TRAINER_RESUME
+    args = train_net.parse_args(trainer_argv(root, out, n_iters,
+                                             "--resume",
+                                             eval_period=n_iters))
+    with recorded_steps() as resume_steps:
+        resumed = Trainer(train_net.setup(args), device=DEVICE)
+    resumed.resume_or_load(resume=True)
+    n = same_state(resumed.state, payload)
+    n_mem = same_state(resumed.state, {
+        "params": trainer.state.params.state_dict(),
+        "optimizer": trainer.state.optimizer.state_dict(),
+        "step": trainer.state.step})
+    log(f"[trainer-resume] restored step {resumed.state.step}: {n} "
+        f"tensors (parameters, BN statistics, Adam moments) and count "
+        f"{resumed.state.optimizer.count} equal the checkpoint bit for "
+        f"bit ({n_mem} equal the first run's state in memory)")
+    del payload, trainer
+    reset_counts()
+    center_argmin.launches = 0
+    resumed.train()
+    resume_launches = {**counts(), "center_argmin": center_argmin.launches}
+    check_trainer_steps("trainer-resume", resumed.cfg, resume_steps,
+                        TRAINER_RESUME)
+    ckpts = CheckpointManager(str(out / "checkpoints")).steps()
+    if resumed.state.step != n_iters or ckpts[-1] != n_iters:
+        raise AssertionError(f"resume ended at step "
+                             f"{resumed.state.step}, checkpoints {ckpts}")
+    log(f"[trainer-resume] {TRAINER_RESUME} more iterations to step "
+        f"{resumed.state.step}, checkpoints {ckpts}, launches "
+        f"{resume_launches}")
+    check_trainer_eval(resumed, out, n_iters)
+    # the same step on the run's last batch beside loader threads:
+    # none; 1 (the interpreter lock shared with one mapper thread); one
+    # fewer than the cores (the launching thread keeps a core); and the
+    # config's, as in the trainer
+    step, batch = make_train_step(resumed.cfg), resume_steps[-1][2]
+    cores = len(os.sched_getaffinity(0))
+    step_ms = {}
+    for workers in sorted({0, 1, cores - 1,
+                           cfg.DATALOADER.NUM_WORKERS}):
+        with loader_running(cfg, workers):
+            step_ms[workers] = steady_state_timer(
+                step, (resumed.state, batch), warmup=1,
+                iters=STEP_ITERS) * 1e3
+    del resumed, resume_steps, batch
+    if DEVICE != "cpu":
+        torch.cuda.empty_cache()
 
-        mapper_ms, stages_ms, rate = loader_rates(cfg, LOADER_BATCHES)
-        rest_ms = [t - w - c for t, w, c in zip(iter_ms, wait_ms, save_ms)]
-        steady = [t - c for t, c in zip(iter_ms[1:], save_ms[1:])]
-        fmt = ", ".join
-        log(f"[trainer] per iteration (ms, host clock): in all "
-            f"[{fmt(f'{t:.1f}' for t in iter_ms)}]; waiting on next(loader) "
-            f"[{fmt(f'{t:.1f}' for t in wait_ms)}]; writing a checkpoint "
-            f"[{fmt(f'{t:.1f}' for t in save_ms)}]; the step and the rest "
-            f"[{fmt(f'{t:.1f}' for t in rest_ms)}]. After the first, "
-            f"without the checkpoint writes: {np.mean(steady):.1f} ms "
-            f"(min {min(steady):.1f}, max {max(steady):.1f})")
-        log(f"[trainer] the step on the run's last batch ({STEP_ITERS} "
-            f"after 1 warmup, synchronised after each): " + fmt(
-                f"{ms:.1f} ms beside " + (f"a loader of {k} thread"
-                                          f"{'s' if k > 1 else ''}" if k
-                                          else "no loader")
-                for k, ms in step_ms.items()))
-        log(f"[trainer] mapper on one thread {mapper_ms:.1f} ms/sample: "
-            + fmt(f"{k} {v:.1f}" for k, v in stages_ms.items())
-            + f", other {mapper_ms - sum(stages_ms.values()):.1f}; host "
-            f"os.cpu_count() {os.cpu_count()}, usable cores {cores}; loader {rate:.2f} samples/s "
-            f"with {cfg.DATALOADER.NUM_WORKERS} threads and nothing else "
-            f"running, against the {b * 1e3 / step_ms[0]:.2f} the step "
-            f"alone consumes; peak allocated {peak:.3f} GiB ({smi})")
+    mapper_ms, stages_ms, rate = loader_rates(cfg, LOADER_BATCHES)
+    rest_ms = [t - w - c for t, w, c in zip(iter_ms, wait_ms, save_ms)]
+    steady = [t - c for t, c in zip(iter_ms[1:], save_ms[1:])]
+    fmt = ", ".join
+    log(f"[trainer] per iteration (ms, host clock): in all "
+        f"[{fmt(f'{t:.1f}' for t in iter_ms)}]; waiting on next(loader) "
+        f"[{fmt(f'{t:.1f}' for t in wait_ms)}]; writing a checkpoint "
+        f"[{fmt(f'{t:.1f}' for t in save_ms)}]; the step and the rest "
+        f"[{fmt(f'{t:.1f}' for t in rest_ms)}]. After the first, "
+        f"without the checkpoint writes: {np.mean(steady):.1f} ms "
+        f"(min {min(steady):.1f}, max {max(steady):.1f})")
+    log(f"[trainer] the step on the run's last batch ({STEP_ITERS} "
+        f"after 1 warmup, synchronised after each): " + fmt(
+            f"{ms:.1f} ms beside " + (f"a loader of {k} thread"
+                                      f"{'s' if k > 1 else ''}" if k
+                                      else "no loader")
+            for k, ms in step_ms.items()))
+    log(f"[trainer] mapper on one thread {mapper_ms:.1f} ms/sample: "
+        + fmt(f"{k} {v:.1f}" for k, v in stages_ms.items())
+        + f", other {mapper_ms - sum(stages_ms.values()):.1f}; host "
+        f"os.cpu_count() {os.cpu_count()}, usable cores {cores}; loader {rate:.2f} samples/s "
+        f"with {cfg.DATALOADER.NUM_WORKERS} threads and nothing else "
+        f"running, against the {b * 1e3 / step_ms[0]:.2f} the step "
+        f"alone consumes; peak allocated {peak:.3f} GiB ({smi})")
     return launches, resume_launches
+
+
+def expected_eval_groups(cfg):
+    """The result groups the JAX evaluators give for ``cfg``, in order."""
+    groups = []
+    if cfg.WITH_PANOPTIC:
+        groups.append("panoptic_seg")
+        if cfg.TEST.EVAL_SEMANTIC:
+            groups.append("sem_seg")
+    if cfg.WITH_DEPTH:
+        groups.append("depth")
+    if cfg.TEST.EVAL_INSTANCE:
+        groups.append("instances")
+    return groups + ["eval_speed"]
+
+
+def check_eval_results(tag, cfg, results):
+    """The JAX evaluators' key set for ``cfg``, every value finite."""
+    want = expected_eval_groups(cfg)
+    if list(results) != want:
+        raise AssertionError(f"{tag}: result groups {list(results)}, "
+                             f"expected {want}")
+    heads = {"panoptic_seg": PANOPTIC_KEYS,
+             "sem_seg": ["mIoU", "IoU", "iIoU", "IoU_sup", "iIoU_sup"],
+             "depth": DEPTH_KEYS, "instances": ["AP", "AP50"],
+             "eval_speed": ["images_per_s", "num_images"]
+             + (["peak_hbm_gb"] if DEVICE != "cpu" else [])}
+    for group, keys in heads.items():
+        if group in results and list(results[group])[:len(keys)] != keys:
+            raise AssertionError(f"{tag}: {group} keys "
+                                 f"{list(results[group])}, expected {keys}")
+    if "instances" in results and list(results["instances"])[-2:] != [
+            "num_images", "num_instances"]:
+        raise AssertionError(f"{tag}: instance counts missing")
+    bad = [f"{g}/{k}" for g, d in results.items() for k, v in d.items()
+           if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"{tag}: non-finite metrics {bad}")
+
+
+def eval_batches(sizes, batch: int) -> int:
+    """Device batches of evaluate_dataset over frames of ``sizes``: one
+    bucket key per original size (the test mapper gives every size here
+    the same valid shape), each full batch and one tail."""
+    n = defaultdict(int)
+    for hw in sizes:
+        n[hw] += 1
+    return sum(math.ceil(k / batch) for k in n.values())
+
+
+def check_trainer_eval(trainer, out: Path, step: int):
+    """Trainer.test ran once, at ``step``: its metrics under eval/ in
+    metrics.json, finite, and its seconds apart from the iteration's
+    others."""
+    lines = [json.loads(line) for line in
+             (out / "metrics.json").read_text().splitlines()]
+    evals = [r for r in lines if any(k.startswith("eval/") for k in r)]
+    if len(evals) != 1 or evals[0]["iteration"] != step:
+        raise AssertionError(f"trainer eval: {len(evals)} eval lines in "
+                             "metrics.json, expected one at step {step}")
+    metrics = {k: v for k, v in evals[0].items() if k.startswith("eval/")}
+    groups = sorted({k.split("/")[1] for k in metrics})
+    want = sorted(expected_eval_groups(trainer.cfg))
+    bad = [k for k, v in metrics.items() if not math.isfinite(v)]
+    if groups != want or bad:
+        raise AssertionError(f"trainer eval: groups {groups} (expected "
+                             f"{want}), non-finite {bad}")
+    eval_s = trainer.eval_seconds
+    if eval_s[-1] <= 0 or any(eval_s[:-1]):
+        raise AssertionError(f"trainer eval seconds {eval_s}")
+    rest = [(t - e) * 1e3 for t, e in zip(trainer.iter_seconds, eval_s)]
+    log(f"[trainer-eval] Trainer.test at step {step}: "
+        f"{metrics['eval/eval_speed/num_images']:.0f} images, "
+        f"{metrics['eval/eval_speed/images_per_s']:.3f} images/s, "
+        f"{eval_s[-1]:.2f} s; PQ {metrics['eval/panoptic_seg/PQ']:.4f}, "
+        f"mIoU {metrics['eval/sem_seg/mIoU']:.4f}, Abs Rel "
+        f"{metrics['eval/depth/Abs Rel']:.4f}; iterations without the eval "
+        f"[{', '.join(f'{t:.1f}' for t in rest)}] ms")
+
+
+@contextlib.contextmanager
+def eval_probe(timed: bool = False):
+    """Within the block, evaluate_dataset's device batches are counted
+    (``to_host`` runs once per batch) and the last center_argmin inputs of
+    each [B, H, W] are kept, cloned; with ``timed``, each batch's stages
+    are timed on the host clock with the card synchronised at each
+    boundary (the eval step; the post-processing: resize to the original
+    size, argmax, fusion, depth, compaction; the copy to the host) and the
+    host's per-call time of each evaluator's ``process``, of
+    ``extract_instances`` and of the GT PNG reads."""
+    rec = {"batches": 0, "argmin": {}, "stage_ms": defaultdict(list),
+           "host_ms": defaultdict(list)}
+    sync = torch.cuda.synchronize if DEVICE != "cpu" else (lambda: None)
+    marks = {}
+    argmin = panoptic_fusion.__kwdefaults__["argmin"]
+    originals = {name: getattr(trainer_module, name) for name in
+                 ("make_eval_step", "_make_tta_step", "to_host",
+                  "extract_instances", "read_image")}
+    read_gt_depth = eval_depth.read_png
+    methods = {cls: cls.process for cls in (
+        PanopticEvaluator, SemSegEvaluator, DepthEvaluator,
+        InstanceAPEvaluator)}
+
+    def host_timed(name, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                rec["host_ms"][name].append(
+                    (time.perf_counter() - t0) * 1e3)
+        return call if timed else fn
+
+    def stepping(make):
+        def build(cfg):
+            step = make(cfg)
+
+            def call(model, images):
+                if not timed:
+                    return step(model, images)
+                sync()
+                t0 = time.perf_counter()
+                out = step(model, images)
+                sync()
+                marks["step"] = time.perf_counter()
+                rec["stage_ms"]["eval step"].append(
+                    (marks["step"] - t0) * 1e3)
+                return out
+            return call
+        return build
+
+    def hosting(res):
+        rec["batches"] += 1
+        if not timed:
+            return originals["to_host"](res)
+        sync()
+        t0 = time.perf_counter()
+        rec["stage_ms"]["post-processing"].append((t0 - marks["step"]) * 1e3)
+        out = originals["to_host"](res)
+        rec["stage_ms"]["copy to host"].append(
+            (time.perf_counter() - t0) * 1e3)
+        return out
+
+    def keeping(*args):
+        rec["argmin"][tuple(args[0].shape)] = tuple(a.clone() for a in args)
+        return argmin(*args)
+
+    trainer_module.make_eval_step = stepping(originals["make_eval_step"])
+    trainer_module._make_tta_step = stepping(originals["_make_tta_step"])
+    trainer_module.to_host = hosting
+    trainer_module.extract_instances = host_timed(
+        "extract_instances", originals["extract_instances"])
+    trainer_module.read_image = host_timed("read_image (GT panoptic, "
+                                           "visualized image)",
+                                           originals["read_image"])
+    eval_depth.read_png = host_timed("read_png (GT disparity)",
+                                     read_gt_depth)
+    for cls, fn in methods.items():
+        cls.process = host_timed(f"{cls.__name__}.process", fn)
+    panoptic_fusion.__kwdefaults__["argmin"] = keeping
+    try:
+        yield rec
+    finally:
+        for name, fn in originals.items():
+            setattr(trainer_module, name, fn)
+        eval_depth.read_png = read_gt_depth
+        for cls, fn in methods.items():
+            cls.process = fn
+        panoptic_fusion.__kwdefaults__["argmin"] = argmin
+
+
+def eval_only(tag, config: str, root: Path, out: Path, *opts,
+              timed=False):
+    """train_net --eval-only of ``config`` on the tree under ``root``, with
+    the device batches and center_argmin launches counted from 0: returns
+    (results, the probe's record, center_argmin launches, config)."""
+    argv = ["--config-file", str(CONFIG_DIR / config), "--data-root",
+            str(root), "--device", DEVICE, "--eval-only", "OUTPUT_DIR",
+            str(out), *opts, *EVAL_OPTS]
+    cfg = load_config(str(CONFIG_DIR / config), [*opts, *EVAL_OPTS])
+    if DEVICE != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    center_argmin.launches = 0
+    t0 = time.perf_counter()
+    with eval_probe(timed) as rec:
+        results = train_net.main(argv)
+    wall = time.perf_counter() - t0
+    launches = center_argmin.launches
+    check_eval_results(tag, cfg, results)
+    lines = (out / "metrics.json").read_text().splitlines()
+    if [json.loads(line) for line in lines] != [
+            json.loads(json.dumps(results))]:
+        raise AssertionError(f"{tag}: metrics.json differs from the "
+                             "results")
+    batch = (cfg.TEST.TTA_IMS_PER_BATCH if cfg.TEST.MSC_FLIP_EVAL
+             else cfg.TEST.IMS_PER_BATCH)
+    want = eval_batches(VAL_SIZES, batch)
+    speed = results["eval_speed"]
+    log(f"[{tag}] {config} --eval-only ({cfg.MODEL.COMPUTE_DTYPE}, batch "
+        f"{batch}, {cfg.DATALOADER.NUM_WORKERS} mapping threads, "
+        f"MSC_FLIP_EVAL {cfg.TEST.MSC_FLIP_EVAL}, EVAL_INSTANCE "
+        f"{cfg.TEST.EVAL_INSTANCE}): {speed['num_images']:.0f} images, "
+        f"{speed['images_per_s']:.3f} images/s, {wall:.1f} s with set-up; "
+        f"device batches {rec['batches']} (expected {want}), center_argmin "
+        f"launches {launches}; peak allocated "
+        f"{speed.get('peak_hbm_gb', float('nan')):.3f} GiB; groups "
+        f"{list(results)}, all finite, metrics.json the same")
+    if not rec["batches"] == launches == want:
+        raise AssertionError(f"{tag}: {launches} center_argmin launches for "
+                             f"{rec['batches']} device batches, expected "
+                             f"{want}")
+    return results, rec, launches, cfg
+
+
+def log_eval_timings(tag, rec, smi):
+    fmt = ", ".join
+    log(f"[{tag}-timing] per device batch (ms, host clock, card "
+        f"synchronised at each boundary): " + "; ".join(
+            f"{k} [{fmt(f'{t:.1f}' for t in v)}]"
+            for k, v in rec["stage_ms"].items()) + f"; {smi}")
+    log(f"[{tag}-timing] host ms per call (one per sample; the reads also "
+        f"per visualized image): " + "; ".join(
+            f"{k} {np.mean(v):.1f} (x{len(v)})"
+            for k, v in rec["host_ms"].items()))
+
+
+def phase_eval(smi, root: Path):
+    """train_net --eval-only over the trainer tree's val split: the Fine
+    YAML with the trainer's model_final, without instances (with the
+    YAML's mapping threads, then with 1 and with one fewer than the
+    cores), with instances, then the pseudo-label YAML's TTA from the
+    ImageNet npz; every run timed by stage; returns the center_argmin
+    launches by run."""
+    model_final = str(root / "out" / "model_final")
+    fine = "MGNet-Cityscapes-Fine.yaml"
+    launches = {}
+    _, rec, launches["eval"], _ = eval_only(
+        "eval", fine, root, root / "eval", "MODEL.WEIGHTS", model_final,
+        "TEST.EVAL_INSTANCE", "False", timed=True)
+    log_eval_timings("eval", rec, smi)
+    for shape, args in sorted(rec["argmin"].items()):
+        center_argmin_report("eval-" + "x".join(map(str, shape)), args, smi,
+                             None)
+    # the mapping pool's threads against the host's cores, as the
+    # trainer phase measures the loader's
+    cores = len(os.sched_getaffinity(0))
+    for workers in sorted({1, cores - 1}):
+        tag = f"eval-threads-{workers}"
+        _, rec, launches[tag], _ = eval_only(
+            tag, fine, root, root / tag, "MODEL.WEIGHTS", model_final,
+            "TEST.EVAL_INSTANCE", "False", "DATALOADER.NUM_WORKERS",
+            str(workers), timed=True)
+        log_eval_timings(tag, rec, smi)
+    _, rec, launches["eval-instances"], _ = eval_only(
+        "eval-instances", fine, root, root / "eval_instances",
+        "MODEL.WEIGHTS", model_final, "TEST.EVAL_INSTANCE", "True",
+        timed=True)
+    log_eval_timings("eval-instances", rec, smi)
+    npz = str(ROOT / "weights" / "imagenet_weights.npz")
+    _, rec, launches["eval-tta"], cfg = eval_only(
+        "eval-tta", "MGNet-Cityscapes-PseudoLabelGeneration.yaml", root,
+        root / "eval_tta", "MODEL.WEIGHTS", npz, timed=True)
+    b = cfg.TEST.TTA_IMS_PER_BATCH
+    log(f"[eval-tta] forwards of [{2 * b}, 3, H*s, W*s] for the scales s "
+        f"0.5-2.0 (at 2.0: [{2 * b}, 3, {2 * cfg.INPUT.MIN_SIZE_TEST}, "
+        f"{2 * cfg.INPUT.MAX_SIZE_TEST}]); averaged probabilities [{b}, H, "
+        f"W, {cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES}] f32")
+    log_eval_timings("eval-tta", rec, smi)
+    return launches
+
+
+def phase_cpu_vs_card_eval(root: Path):
+    """The f32 evaluate_dataset on the card against the same call on the
+    CPU, at narrow widths, on a tree of SMALL_VAL frames under ``root``:
+    each panoptic map on >= 99.9% of pixels, the metric dicts with the
+    same keys and every value within the CPU tests' bar of 1e-4 relative
+    (1e-4 absolute below 1; the maps agreed on every pixel and the metrics
+    to 4.1e-7 on an H100). The card's run launches center_argmin once per
+    device batch."""
+    write_cityscapes_tree(str(root), 0, 64, 128, seed=SEED,
+                          val_sizes=SMALL_VAL)
+    DatasetCatalog.clear()
+    MetadataCatalog.clear()
+    register_all_cityscapes_scene_seg(str(root))
+    cfg = slice_config("float32")
+    cfg.MODEL.GCM.GCM_CHANNELS = 32
+    h = cfg.MODEL.SEM_SEG_HEAD
+    h.ARM_CHANNELS, h.REFINE_CHANNELS = [32, 32], [32, 32]
+    h.FFM_CHANNELS, h.HEAD_CHANNELS = 48, 32
+    cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST = SMALL_VAL[0]
+    cfg.TEST.EVAL_INSTANCE = True
+    # random heads predict no road, so DGC's ground would be empty and
+    # every depth 0; without DGC the evaluator scales by the GT median
+    cfg.MODEL.POST_PROCESSING.USE_DGC_SCALING = False
+    model = build_model(cfg, device="cpu")
+    init_random_(model, torch.Generator().manual_seed(SEED))
+    pans = {"cpu": [], "card": []}
+    process = PanopticEvaluator.process
+    try:
+        results = {}
+        for run, device in (("cpu", "cpu"), ("card", DEVICE)):
+            def keeping(self, pred, *args, out=pans[run], **kwargs):
+                out.append(pred.copy())
+                return process(self, pred, *args, **kwargs)
+
+            PanopticEvaluator.process = keeping
+            center_argmin.launches = 0
+            results[run] = evaluate_dataset(cfg, model.to(device))
+            launches = center_argmin.launches
+    finally:
+        PanopticEvaluator.process = process
+        DatasetCatalog.clear()
+        MetadataCatalog.clear()
+    want, got = results["cpu"], results["card"]
+    agree = [float((g == w).mean()) for g, w in zip(pans["card"],
+                                                    pans["cpu"])]
+    errs = {}
+    for group in want:
+        if group == "eval_speed":
+            continue
+        if list(got[group]) != list(want[group]):
+            raise AssertionError(f"card vs CPU eval: {group} keys differ")
+        for k, v in want[group].items():
+            errs[f"{group}/{k}"] = abs(got[group][k] - v) / max(abs(v), 1.0)
+    worst = max(errs, key=errs.get)
+    n_batches = eval_batches(SMALL_VAL, cfg.TEST.IMS_PER_BATCH)
+    log(f"[cpu-vs-card-eval] f32 evaluate_dataset, {len(SMALL_VAL)} frames "
+        f"{sorted(set(SMALL_VAL))}, batch {cfg.TEST.IMS_PER_BATCH}: panoptic "
+        f"agreement per image {[round(a, 5) for a in agree]}; metrics' max "
+        f"relative difference {errs[worst]:.3e} ({worst}); PQ "
+        f"{got['panoptic_seg']['PQ']:.4f} vs {want['panoptic_seg']['PQ']:.4f}"
+        f", Abs Rel {got['depth']['Abs Rel']:.5f} vs "
+        f"{want['depth']['Abs Rel']:.5f}; center_argmin launches on the "
+        f"card {launches} (device batches {n_batches})")
+    if len(agree) != len(SMALL_VAL) or min(agree) < 0.999 \
+            or errs[worst] > 1e-4 or list(got) != list(want):
+        raise AssertionError("card and CPU evaluations disagree")
+    if DEVICE != "cpu" and launches != n_batches:
+        raise AssertionError(f"card eval: {launches} center_argmin "
+                             f"launches for {n_batches} device batches")
 
 
 def main() -> int:
@@ -1659,6 +2052,8 @@ def main() -> int:
     phase_cpu_vs_card()
     rows[0]["launches"] = phase_slice(smi, parent)
     phase_cpu_vs_card_train()
+    with tempfile.TemporaryDirectory(prefix="mgnet_eval_small_") as tmp:
+        phase_cpu_vs_card_eval(Path(tmp))
     reset_counts()
     launches = phase_train(smi)
     for row in rows[1:]:
@@ -1667,10 +2062,14 @@ def main() -> int:
         if not row["launches"]:
             raise AssertionError(f"{row['name']}: no launch on its path")
     train_paths, frame_paths = phase_configs(smi)
-    trainer_paths = dict(zip(("trainer", "trainer-resume"),
-                             phase_trainer(smi)))
-    rows[0]["launches_by_path"] = {"serving": rows[0]["launches"],
-                                   **frame_paths}
+    with tempfile.TemporaryDirectory(prefix="mgnet_trainer_") as tmp:
+        trainer_paths = dict(zip(("trainer", "trainer-resume"),
+                                 phase_trainer(smi, Path(tmp))))
+        eval_paths = phase_eval(smi, Path(tmp))
+    rows[0]["launches_by_path"] = {
+        "serving": rows[0]["launches"], **frame_paths,
+        "trainer-eval": trainer_paths["trainer-resume"].pop("center_argmin"),
+        **eval_paths}
     for row in rows[1:]:
         row["launches_by_path"] = {"train": row["launches"], **{
             tag: n[row["name"]] for tag, n in

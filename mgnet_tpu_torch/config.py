@@ -13,11 +13,11 @@ raise as unknown, with a message that names them.
 
 Keys carried so that the shipped YAML files load, which no code of the
 port reads yet, with the slice of ROADMAP.md's Queue 1 that will read
-them: ``TEST.*`` but ``TEST.EVAL_PERIOD`` (evaluation, and
-``TEST.MSC_FLIP_EVAL`` with the inference tools); ``MESH.*``
-(distribution). The trainer (``train/trainer.py``) reads ``DATASETS.*``,
-``DATALOADER.*``, ``INPUT.*``, ``MODEL.WEIGHTS``, ``OUTPUT_DIR`` and
-``TEST.EVAL_PERIOD``, which must be 0 until evaluation is ported.
+them: ``MESH.*`` (distribution), and ``TEST.AMP.ENABLED``, which no code
+of the JAX package reads either (the eval step's dtype is
+``MODEL.COMPUTE_DTYPE``). The trainer (``train/trainer.py``) reads
+``DATASETS.*``, ``DATALOADER.*``, ``INPUT.*``, ``MODEL.WEIGHTS``,
+``OUTPUT_DIR`` and ``TEST.*``.
 
 The card's machine has no PyYAML, so the files are read by ``parse_yaml``,
 a reader of the subset the shipped configs use: nested block maps by

@@ -14,6 +14,7 @@ from typing import Dict, List
 __all__ = [
     "CITYSCAPES_CATEGORIES",
     "CITYSCAPES_SCENE_SEG_CATEGORIES",
+    "CITYSCAPES_SUPERCATEGORY",
     "build_meta",
 ]
 
@@ -55,6 +56,26 @@ CITYSCAPES_SCENE_SEG_CATEGORIES: List[Dict] = [
 for _c in copy.deepcopy(CITYSCAPES_CATEGORIES):
     _c["trainId"] += 1
     CITYSCAPES_SCENE_SEG_CATEGORIES.append(_c)
+
+
+# Public Cityscapes label -> supercategory mapping (labels_cityscapes), as
+# mgnet_tpu/evaluation/semantic.py holds it
+CITYSCAPES_SUPERCATEGORY = {
+    "road": "flat", "sidewalk": "flat", "parking": "flat",
+    "rail track": "flat",
+    "building": "construction", "wall": "construction",
+    "fence": "construction", "guard rail": "construction",
+    "bridge": "construction", "tunnel": "construction",
+    "pole": "object", "polegroup": "object", "traffic light": "object",
+    "traffic sign": "object",
+    "vegetation": "nature", "terrain": "nature",
+    "sky": "sky",
+    "person": "human", "rider": "human",
+    "car": "vehicle", "truck": "vehicle", "bus": "vehicle",
+    "caravan": "vehicle", "trailer": "vehicle", "train": "vehicle",
+    "motorcycle": "vehicle", "bicycle": "vehicle",
+    "ego vehicle": "vehicle", "license plate": "vehicle",
+}
 
 
 def build_meta(categories: List[Dict]) -> Dict:

@@ -8,7 +8,8 @@ panoptic targets of two thing instances on one stuff class per image.
 
 ``write_cityscapes_tree`` writes a small Cityscapes-layout panoptic tree to
 disk, for the datasets' path through ``data/cityscapes.py``,
-``data/mapper.py`` and ``data/loader.py``.
+``data/mapper.py`` and ``data/loader.py``, and optionally a val split with
+disparity ground truth for the evaluation.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from __future__ import annotations
 import json
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 
@@ -95,14 +96,59 @@ def _tree_frame(rng: np.random.Generator, h: int, w: int):
     return img, np.roll(img, -8, axis=1), np.roll(img, 8, axis=1)
 
 
+def _tree_panoptic(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
+    """Panoptic ids of road and sky with a person and two cars."""
+    pan = np.full((h, w), 7000, np.int64)               # road
+    pan[: h // 3] = 23000                                 # sky
+    y0 = int(rng.integers(h // 3, h - h // 4))            # a person
+    pan[y0:y0 + h // 5, w // 2 - w // 20:w // 2 + w // 20] = 24001
+    for k in (1, 2):                 # a car in each half of the frame
+        y0 = int(rng.integers(h // 3, h - h // 4))
+        x0 = int(rng.integers((k - 1) * w // 2, k * w // 2 - w // 6))
+        pan[y0:y0 + h // 6, x0:x0 + w // 6] = 26000 + k
+    return pan
+
+
+# the segments of every _tree_panoptic map (a car may hide the other)
+_SEGMENTS = [{"id": i, "category_id": i // 1000, "iscrowd": 0}
+             for i in (7000, 23000, 24001, 26001, 26002)]
+
+
+def _camera(h: int, w: int, f: int) -> Dict:
+    return {"intrinsic": {"fx": 1.1047 * w + f, "fy": 1.1061 * w,
+                          "u0": 0.5356 * w, "v0": 0.5011 * h},
+            "extrinsic": {"baseline": 0.209313, "z": 1.22}}
+
+
+def _disparity(rng: np.random.Generator, pan: np.ndarray,
+               camera: Dict) -> np.ndarray:
+    """16-bit Cityscapes disparity (v = 256 * d + 1; 0 = no measurement)
+    of a scene 60 m deep at the horizon and 4 m at the bottom row, with
+    noise; 0 on sky."""
+    h, w = pan.shape
+    rows = np.linspace(60.0, 4.0, h)[:, None]
+    depth = rows * np.exp(rng.normal(0, 0.05, (h, w)))
+    disp = (camera["extrinsic"]["baseline"] * camera["intrinsic"]["fx"]
+            / depth)
+    v = np.round(disp * 256.0 + 1.0).astype(np.uint16)
+    v[pan == 23000] = 0
+    return v
+
+
 def write_cityscapes_tree(root: str, frames: int, height: int, width: int,
-                          seed: int = 0) -> Dict[str, np.ndarray]:
+                          seed: int = 0,
+                          val_sizes: Sequence[Tuple[int, int]] = ()
+                          ) -> Dict[str, np.ndarray]:
     """Write a Cityscapes-layout panoptic training tree under ``root`` (the
     layout ``register_all_cityscapes_scene_seg(root)`` reads as
     ``cityscapes_fine_scene_seg_train``): ``frames`` frames of height x
     width, each with its -/+1 sequence frames, a panoptic PNG of road and
     sky with a person and two cars, a camera JSON, and the panoptic JSON.
-    Every PNG goes through ``write_png``. Returns {path: array written}."""
+    With ``val_sizes``, also the split read as
+    ``cityscapes_fine_scene_seg_val``: one frame of each (height, width),
+    with its panoptic PNG, 16-bit disparity PNG and camera JSON, and the
+    val panoptic JSON. Every PNG goes through ``write_png``. Returns
+    {path: array written}."""
     city = "synth"
     base = os.path.join(root, "cityscapes")
     img_dir = os.path.join(base, "leftImg8bit", "train", city)
@@ -122,28 +168,52 @@ def write_cityscapes_tree(root: str, frames: int, height: int, width: int,
         for i, a in ((idx - 1, prev), (idx + 1, nxt)):
             written[os.path.join(
                 seq_dir, f"{city}_000000_{i:06d}_leftImg8bit.png")] = a
-        pan = np.full((h, w), 7000, np.int64)               # road
-        pan[: h // 3] = 23000                                 # sky
-        y0 = int(rng.integers(h // 3, h - h // 4))            # a person
-        pan[y0:y0 + h // 5, w // 2 - w // 20:w // 2 + w // 20] = 24001
-        for k in (1, 2):                 # a car in each half of the frame
-            y0 = int(rng.integers(h // 3, h - h // 4))
-            x0 = int(rng.integers((k - 1) * w // 2, k * w // 2 - w // 6))
-            pan[y0:y0 + h // 6, x0:x0 + w // 6] = 26000 + k
+        pan = _tree_panoptic(rng, h, w)
         written[os.path.join(gt_dir, f"{stem}_gtFine_panoptic.png")] = \
             id2rgb(pan)
         anns.append({"image_id": stem,
                      "file_name": f"{stem}_gtFine_panoptic.png",
-                     "segments_info": [
-                         {"id": i, "category_id": i // 1000, "iscrowd": 0}
-                         for i in (7000, 23000, 24001, 26001, 26002)]})
+                     "segments_info": _SEGMENTS})
         with open(os.path.join(cam_dir, f"{stem}_camera.json"), "w") as fh:
-            json.dump({"intrinsic": {"fx": 1.1047 * w + f, "fy": 1.1061 * w,
-                                     "u0": 0.5356 * w, "v0": 0.5011 * h},
-                       "extrinsic": {"baseline": 0.209313, "z": 1.22}}, fh)
+            json.dump(_camera(h, w, f), fh)
     with open(os.path.join(base, "gtFine",
                            "cityscapes_panoptic_train.json"), "w") as fh:
         json.dump({"annotations": anns, "categories": []}, fh)
+    if val_sizes:
+        _write_val(base, val_sizes, np.random.default_rng(seed + 1),
+                   written)
     with ThreadPoolExecutor(8) as pool:
         list(pool.map(lambda kv: write_png(*kv), written.items()))
     return written
+
+
+def _write_val(base: str, sizes, rng: np.random.Generator,
+               written: Dict[str, np.ndarray]) -> None:
+    """The val split's frames into ``written`` and its JSONs to disk."""
+    city = "synthval"
+    dirs = {k: os.path.join(base, k, "val", city)
+            for k in ("leftImg8bit", "camera", "disparity")}
+    gt_dir = os.path.join(base, "gtFine", "cityscapes_panoptic_val")
+    for d in (*dirs.values(), gt_dir):
+        os.makedirs(d, exist_ok=True)
+    anns = []
+    for f, (h, w) in enumerate(sizes):
+        stem = f"{city}_000000_{19 + 10 * f:06d}"
+        written[os.path.join(dirs["leftImg8bit"],
+                             f"{stem}_leftImg8bit.png")] = \
+            _tree_frame(rng, h, w)[0]
+        pan = _tree_panoptic(rng, h, w)
+        written[os.path.join(gt_dir, f"{stem}_gtFine_panoptic.png")] = \
+            id2rgb(pan)
+        camera = _camera(h, w, f)
+        written[os.path.join(dirs["disparity"], f"{stem}_disparity.png")] = \
+            _disparity(rng, pan, camera)
+        anns.append({"image_id": stem,
+                     "file_name": f"{stem}_gtFine_panoptic.png",
+                     "segments_info": _SEGMENTS})
+        with open(os.path.join(dirs["camera"], f"{stem}_camera.json"),
+                  "w") as fh:
+            json.dump(camera, fh)
+    with open(os.path.join(base, "gtFine", "cityscapes_panoptic_val.json"),
+              "w") as fh:
+        json.dump({"annotations": anns, "categories": []}, fh)

@@ -1,7 +1,8 @@
 """Intrinsics scaling and view synthesis (the warp of the photometric
 loss).
 
-Port of ``mgnet_tpu/geometry/camera_utils.py``: ``scale_intrinsics``
+Port of ``mgnet_tpu/geometry/camera_utils.py``: ``construct_K`` (a numpy
+[3, 3] intrinsics matrix), ``scale_intrinsics``
 (pixel-center convention), ``synthesis_coords`` (the planar per-pixel
 affine chain reconstruct -> world -> reference camera -> project, with the
 clamp ``pz >= 1e-5``), and ``view_synthesis`` / ``view_synthesis_planar``
@@ -11,12 +12,19 @@ coordinates into the depth and the pose.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from mgnet_tpu_torch.geometry.image import grid_sample, grid_sample_planar
 
-__all__ = ["scale_intrinsics", "synthesis_coords", "view_synthesis",
-           "view_synthesis_planar"]
+__all__ = ["construct_K", "scale_intrinsics", "synthesis_coords",
+           "view_synthesis", "view_synthesis_planar"]
+
+
+def construct_K(fx: float, fy: float, cx: float, cy: float,
+                dtype=np.float32) -> np.ndarray:
+    """A [3, 3] pinhole intrinsics matrix (host side)."""
+    return np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], dtype=dtype)
 
 
 def scale_intrinsics(K: torch.Tensor, x_scale, y_scale) -> torch.Tensor:

@@ -5,7 +5,8 @@ takes NHWC and ``interpolate_bilinear_cf`` NCHW, as in the JAX package;
 both follow torch's ``align_corners=True`` contract, which the JAX package
 evaluates as dense interpolation matrices and this port with
 ``F.interpolate``. ``interpolate_nearest`` runs inside the NCHW modules and
-takes NCHW.
+takes NCHW. ``gradient_x``, ``gradient_y`` and ``match_scales`` take NHWC,
+as the JAX functions do.
 """
 
 from __future__ import annotations
@@ -18,6 +19,9 @@ import torch.nn.functional as F
 from mgnet_tpu_torch.ops.warp import warp_bilinear, warp_bilinear_reference
 
 __all__ = [
+    "gradient_x",
+    "gradient_y",
+    "match_scales",
     "image_grid",
     "interpolate_bilinear",
     "interpolate_bilinear_cf",
@@ -38,6 +42,16 @@ def image_grid(batch: int, height: int, width: int,
         torch.ones(height, width, dtype=dtype, device=device),
     ], dim=-1)
     return grid[None].expand(batch, height, width, 3)
+
+
+def gradient_x(image: torch.Tensor) -> torch.Tensor:
+    """Forward difference along width: [B,H,W,C] -> [B,H,W-1,C]."""
+    return image[:, :, :-1, :] - image[:, :, 1:, :]
+
+
+def gradient_y(image: torch.Tensor) -> torch.Tensor:
+    """Forward difference along height: [B,H,W,C] -> [B,H-1,W,C]."""
+    return image[:, :-1, :, :] - image[:, 1:, :, :]
 
 
 def interpolate_bilinear_cf(x: torch.Tensor,
@@ -72,6 +86,12 @@ def interpolate_nearest(x: torch.Tensor,
     idx_h = torch.arange(out_h, device=x.device) * in_h // out_h
     idx_w = torch.arange(out_w, device=x.device) * in_w // out_w
     return x[:, :, idx_h][:, :, :, idx_w]
+
+
+def match_scales(image: torch.Tensor, shapes):
+    """``image`` [B,H,W,C] resized to each (H, W) of ``shapes`` (bilinear,
+    align corners)."""
+    return [interpolate_bilinear(image, s) for s in shapes]
 
 
 def _sample(image, coords, padding_mode, with_grads):

@@ -12,6 +12,10 @@ inverse depth with weight 1/2^i per scale (no extra /2).
 
 Everything runs in float32, on channel-planar [B, C, H, W] tensors inside;
 the arguments keep the JAX package's NHWC layout.
+
+``ssim`` is the plain SSIM loss map of ``mgnet_tpu/losses/photometric.py:50``
+(NHWC, 3x3 average pools over reflect padding); the loss above does not
+call it: its residual is the fused kernel's.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional
 
 import torch
+import torch.nn.functional as F
 
 from mgnet_tpu_torch.geometry import (
     Camera,
@@ -28,7 +33,34 @@ from mgnet_tpu_torch.geometry import (
 )
 from mgnet_tpu_torch.ops.ssim import fused_photometric_residual
 
-__all__ = ["multi_view_photometric_loss"]
+__all__ = ["multi_view_photometric_loss", "ssim"]
+
+
+def _avg_pool3(x: torch.Tensor) -> torch.Tensor:
+    """3x3 stride-1 'valid' average pool of NHWC, in the JAX function's
+    shifted-add order."""
+    r = x[:, :-2] + x[:, 1:-1] + x[:, 2:]
+    s = r[:, :, :-2] + r[:, :, 1:-1] + r[:, :, 2:]
+    return s / 9.0
+
+
+def ssim(x: torch.Tensor, y: torch.Tensor, c1: float = 1e-4,
+         c2: float = 9e-4) -> torch.Tensor:
+    """SSIM loss map clamp((1 - SSIM) / 2, 0, 1) of NHWC images, with the
+    statistics over 3x3 pools of the reflect-padded images."""
+    def pad(t):
+        return F.pad(t.permute(0, 3, 1, 2), (1, 1, 1, 1),
+                     mode="reflect").permute(0, 2, 3, 1)
+
+    xp, yp = pad(x), pad(y)
+    mu_x, mu_y = _avg_pool3(xp), _avg_pool3(yp)
+    mu_xy, mu_xx, mu_yy = mu_x * mu_y, mu_x * mu_x, mu_y * mu_y
+    sigma_x = _avg_pool3(xp * xp) - mu_xx
+    sigma_y = _avg_pool3(yp * yp) - mu_yy
+    sigma_xy = _avg_pool3(xp * yp) - mu_xy
+    ssim_val = ((2 * mu_xy + c1) * (2 * sigma_xy + c2)) / (
+        (mu_xx + mu_yy + c1) * (sigma_x + sigma_y + c2))
+    return torch.clamp((1.0 - ssim_val) / 2.0, 0.0, 1.0)
 
 
 def _planar(x: torch.Tensor) -> torch.Tensor:

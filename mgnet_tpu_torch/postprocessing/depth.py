@@ -1,9 +1,14 @@
-"""Depth post-processing: surface normals and the DGC metric scale.
+"""Depth post-processing: surface normals, the DGC metric scale, and the
+rescale with the class filter that the evaluation loop runs.
 
-Port of ``mgnet_tpu/postprocessing/depth.py:28-158``: surface normals from
+Port of ``mgnet_tpu/postprocessing/depth.py:28-205``: surface normals from
 four cross products of the 8-neighbourhood (in planar form), the ground
 mask (road class, or normals within 5 degrees of vertical), the camera
-height of each ground pixel, its median, and scale = real height / median.
+height of each ground pixel, its median, and scale = real height / median;
+``depth_postprocess`` unprojects through ``Camera.reconstruct``, rescales
+depth and points by that scale, and sets the pixels of the filtered
+panoptic ids to 0 in depth and NaN in the points. The fused frame
+(``inference/fused.py``) inlines the same steps.
 
 ``_masked_median`` is torch.median's lower-middle element over the masked
 values, k = (count - 1) // 2, and +inf for an empty mask. The JAX package
@@ -14,12 +19,14 @@ this port sorts and takes element k, which gives the same value.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["surface_normals", "dgc_scale_factor"]
+from mgnet_tpu_torch.geometry.camera import Camera
+
+__all__ = ["surface_normals", "dgc_scale_factor", "depth_postprocess"]
 
 
 def _normalize3(x, y, z, eps: float = 1e-12):
@@ -104,3 +111,50 @@ def dgc_scale_factor(points: torch.Tensor, real_camera_height,
     real = torch.as_tensor(real_camera_height, dtype=points.dtype,
                            device=points.device).reshape(-1)
     return real / med
+
+
+def depth_postprocess(
+    depth: torch.Tensor,
+    camera_matrix: Optional[torch.Tensor] = None,
+    real_camera_height: Optional[torch.Tensor] = None,
+    panoptic_seg: Optional[torch.Tensor] = None,
+    *,
+    use_dgc_scaling: bool = True,
+    road_class_id: int = -1,
+    filter_class_ids: Sequence[int] = (),
+):
+    """Metric-rescale a depth prediction and unproject a point cloud.
+
+    Args:
+        depth: [B, H, W, 1] predicted depth.
+        camera_matrix: [B, 3, 3] intrinsics (required for DGC).
+        real_camera_height: [B] metric camera height (required for DGC).
+        panoptic_seg: [B, H, W] panoptic ids or None.
+
+    Returns:
+        (depth [B, H, W] f32, xyz points [B, H, W, 3] f32 or None)
+    """
+    depth = depth.float()
+    points = None
+    if use_dgc_scaling:
+        if camera_matrix is None or real_camera_height is None:
+            raise ValueError("DGC scaling needs the camera matrix and the "
+                             "camera height")
+        cam = Camera(camera_matrix.float())
+        points = cam.reconstruct(depth, frame="c")
+        ground_mask = None
+        if panoptic_seg is not None and road_class_id != -1:
+            ground_mask = panoptic_seg == road_class_id
+        scale = dgc_scale_factor(points, real_camera_height,
+                                 ground_mask).reshape(-1, 1, 1, 1)
+        depth = depth * scale
+        points = points * scale
+
+    depth2d = depth[..., 0]
+    if panoptic_seg is not None:
+        for cid in filter_class_ids:
+            m = panoptic_seg == cid
+            depth2d = torch.where(m, 0.0, depth2d)
+            if points is not None:
+                points = torch.where(m[..., None], float("nan"), points)
+    return depth2d, points

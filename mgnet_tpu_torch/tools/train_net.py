@@ -1,35 +1,47 @@
-"""Training entry point of the port.
+"""Training and evaluation entry point of the port.
 
     python -m mgnet_tpu_torch.tools.train_net --config-file FILE
-        [--resume] [--data-root DIR] [--device cuda] [KEY VALUE ...]
+        [--eval-only] [--resume] [--data-root DIR] [--device cuda]
+        [KEY VALUE ...]
 
-The counterpart of ``tools/train_net.py`` for training: the config (with a
-timestamped output subdirectory under ``WRITE_OUTPUT_TO_SUBDIR`` and the
+The counterpart of ``tools/train_net.py``: the config (with a timestamped
+output subdirectory under ``WRITE_OUTPUT_TO_SUBDIR`` when training, and the
 git commit when there is one) is written to ``OUTPUT_DIR/config.yaml``,
 the Cityscapes and KITTI-Eigen datasets are registered under
 ``--data-root`` (default ``$MGNET_DATASETS`` or ``./datasets``), and the
 ``Trainer`` resumes or loads ``MODEL.WEIGHTS`` and trains on ``--device``.
-``--eval-only`` raises until the evaluation slice; the multi-process flags
-are not ported.
+With ``--eval-only`` the model of the config is built on ``--device``
+with ``MODEL.WEIGHTS`` (``load_eval_weights``), ``evaluate_dataset`` runs
+over ``DATASETS.TEST[0]``, and the results are printed and appended as
+one JSON line to ``OUTPUT_DIR/metrics.json``. The multi-process flags are
+not ported.
 """
 
 from __future__ import annotations
 
 import argparse
 import datetime
+import json
 import os
 import subprocess
 import sys
-from typing import List, Optional
+from typing import Dict, List, Optional
+
+import torch
 
 from mgnet_tpu_torch.config import load_config
 from mgnet_tpu_torch.data import (
     register_all_cityscapes_scene_seg,
     register_all_kitti_eigen_scene_seg,
 )
-from mgnet_tpu_torch.train.trainer import EVAL_NOT_PORTED, Trainer
+from mgnet_tpu_torch.models import build_model, init_random_
+from mgnet_tpu_torch.train.trainer import Trainer, evaluate_dataset
+from mgnet_tpu_torch.utils.checkpoint import load_params
+from mgnet_tpu_torch.utils.events import MetricLogger
+from mgnet_tpu_torch.utils.weights import load_pretrained_npz
 
-__all__ = ["main", "parse_args", "register_datasets", "setup"]
+__all__ = ["eval_only", "load_eval_weights", "main", "parse_args",
+           "register_datasets", "setup"]
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -45,7 +57,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def setup(args):
     cfg = load_config(args.config_file or None, args.opts)
-    if cfg.WRITE_OUTPUT_TO_SUBDIR:
+    if cfg.WRITE_OUTPUT_TO_SUBDIR and not args.eval_only:
         stamp = datetime.datetime.now().strftime("%Y%m%d_%H%M%S")
         name = os.path.splitext(os.path.basename(args.config_file or "run"))[0]
         cfg.OUTPUT_DIR = os.path.join(cfg.OUTPUT_DIR, f"{stamp}_{name}")
@@ -73,13 +85,64 @@ def register_datasets(args):
             pass  # registered already in this process
 
 
-def main(argv: Optional[List[str]] = None) -> Trainer:
-    """Train as the command line says; returns the finished Trainer."""
+def load_eval_weights(model: torch.nn.Module, weights: str) -> None:
+    """Load ``weights`` into an eval model: a ``model_final`` directory
+    (``save_params``'s; every entry of the model must be there, with its
+    shape; the training model's extra leaves, such as the pose net, are
+    left out), or an npz of JAX-layout arrays grafted where name and shape
+    match (the rest keep their values; zero matches raise)."""
+    if not weights:
+        raise ValueError("evaluation needs MODEL.WEIGHTS: a model_final "
+                         "directory or an npz")
+    if os.path.isdir(weights):
+        src = {k[len("model."):] if k.startswith("model.") else k: v
+               for k, v in load_params(weights).items()}
+        dst = model.state_dict()
+        bad = sorted(k for k, v in dst.items()
+                     if k not in src or src[k].shape != v.shape)
+        if bad:
+            raise ValueError(
+                f"MODEL.WEIGHTS={weights!r} lacks {len(bad)} entries of the "
+                f"model or has them in another shape: {bad[:6]}")
+        model.load_state_dict({k: src[k] for k in dst})
+        return
+    info = load_pretrained_npz(weights, model)
+    if info["matched"] == 0:
+        raise ValueError(f"MODEL.WEIGHTS={weights!r} matched zero "
+                         f"parameter leaves ({info})")
+
+
+def eval_only(cfg, device="cuda") -> Dict[str, Dict[str, float]]:
+    """--eval-only: the config's model on ``device`` (weights drawn from
+    ``cfg.SEED``, then MODEL.WEIGHTS loaded), evaluated over
+    DATASETS.TEST[0]; the results printed and appended to
+    ``OUTPUT_DIR/metrics.json``."""
+    model = build_model(cfg, device="cpu")
+    init_random_(model, torch.Generator().manual_seed(cfg.SEED))
+    load_eval_weights(model, cfg.MODEL.WEIGHTS)
+    model.to(device)
+    logger = MetricLogger(cfg.OUTPUT_DIR)
+    try:
+        results = evaluate_dataset(
+            cfg, model, image_logger=logger,
+            visualize_dir=(os.path.join(cfg.OUTPUT_DIR, "eval_vis")
+                           if cfg.VISUALIZE_EVALUATION else None))
+    finally:
+        logger.close()
+    print(json.dumps(results, indent=2, default=float))
+    with open(os.path.join(cfg.OUTPUT_DIR, "metrics.json"), "a") as f:
+        f.write(json.dumps(results, default=float) + "\n")
+    return results
+
+
+def main(argv: Optional[List[str]] = None):
+    """Train as the command line says and return the finished Trainer;
+    with --eval-only, return the evaluation's results."""
     args = parse_args(argv)
-    if args.eval_only:
-        raise NotImplementedError("--eval-only: " + EVAL_NOT_PORTED)
     cfg = setup(args)
     register_datasets(args)
+    if args.eval_only:
+        return eval_only(cfg, device=args.device)
     trainer = Trainer(cfg, device=args.device)
     trainer.resume_or_load(resume=args.resume)
     trainer.train()

@@ -358,3 +358,102 @@ def test_trainer_step_on_a_mini_tree_launches_the_kernels(tmp_path):
     assert all(torch.isfinite(torch.tensor(v)) for v in line.values())
     assert (tmp_path / "out" / "model_final" / "params.pt").is_file()
     DatasetCatalog.clear()
+
+
+# the evaluation's fusion shapes: TEST.IMS_PER_BATCH 4 and its pow2 tails
+# at 1024x2048, and a frame of another original size (1000x2000, not a
+# multiple of the 32 x 32 tile) alone and in a batch
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,w", [(4, 1024, 2048), (2, 1024, 2048),
+                                   (1, 1000, 2000), (4, 1000, 2000)])
+def test_center_argmin_kernel_at_the_eval_shapes(b, h, w):
+    _need_card()
+    args = _center_case(b, h, w, 128, seed=b)
+    before = center_argmin.launches
+    got = center_argmin(*args)
+    torch.cuda.synchronize()
+    assert center_argmin.launches == before + 1
+    assert torch.equal(got, center_argmin_reference(*args))
+
+
+def _eval_on(device, cfg, model, out):
+    """evaluate_dataset of ``model`` moved to ``device``, and the panoptic
+    maps its PanopticEvaluator was given."""
+    from mgnet_tpu_torch.evaluation.panoptic import PanopticEvaluator
+    from mgnet_tpu_torch.train.trainer import evaluate_dataset
+
+    process = PanopticEvaluator.process
+
+    def keeping(self, pred, *args, **kwargs):
+        out.append(pred.copy())
+        return process(self, pred, *args, **kwargs)
+
+    PanopticEvaluator.process = keeping
+    try:
+        return evaluate_dataset(cfg, model.to(device))
+    finally:
+        PanopticEvaluator.process = process
+
+
+@pytest.mark.gpu
+def test_eval_batch_on_the_card_matches_the_cpu(tmp_path):
+    """The f32 evaluate_dataset on the card against the CPU on a mini val
+    tree (a full batch of 4, a pow2 tail and a second bucket key), with the
+    same seeded narrow model, TF32 off: each panoptic map agrees on >=
+    99.9% of pixels, the metric dicts have the same keys, and every value
+    agrees within the CPU tests' bar, 1e-4 relative (1e-4 absolute)."""
+    _need_card()
+    import numpy as np
+
+    from mgnet_tpu_torch.config import get_default_config
+    from mgnet_tpu_torch.data import (
+        DatasetCatalog,
+        MetadataCatalog,
+        register_all_cityscapes_scene_seg,
+        write_cityscapes_tree,
+    )
+    from mgnet_tpu_torch.models import build_model, init_random_
+
+    write_cityscapes_tree(str(tmp_path), 0, 128, 256,
+                          val_sizes=[(128, 256)] * 6 + [(120, 240)])
+    DatasetCatalog.clear()
+    MetadataCatalog.clear()
+    register_all_cityscapes_scene_seg(str(tmp_path))
+    cfg = get_default_config()
+    cfg.MODEL.COMPUTE_DTYPE = "float32"
+    cfg.MODEL.GCM.GCM_CHANNELS = 32
+    h = cfg.MODEL.SEM_SEG_HEAD
+    h.ARM_CHANNELS, h.REFINE_CHANNELS = [32, 32], [32, 32]
+    h.FFM_CHANNELS, h.HEAD_CHANNELS = 48, 32
+    cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST = 128, 256
+    cfg.TEST.EVAL_INSTANCE = True
+    # random heads predict no road: without DGC the depth is not all 0
+    cfg.MODEL.POST_PROCESSING.USE_DGC_SCALING = False
+    model = build_model(cfg, device="cpu")
+    init_random_(model, torch.Generator().manual_seed(0))
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pans = {"cpu": [], "cuda": []}
+    try:
+        want = _eval_on("cpu", cfg, model, pans["cpu"])
+        before = center_argmin.launches
+        got = _eval_on("cuda", cfg, model, pans["cuda"])
+        assert center_argmin.launches - before == 3  # 4 + 2, then 1
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+        DatasetCatalog.clear()
+    assert len(pans["cuda"]) == len(pans["cpu"]) == 7
+    for g, w in zip(pans["cuda"], pans["cpu"]):
+        assert (g == w).mean() >= 0.999
+    assert list(got) == list(want)
+    for group in want:
+        if group == "eval_speed":
+            continue
+        assert list(got[group]) == list(want[group]), group
+        for k, v in want[group].items():
+            assert np.isfinite(got[group][k]), (group, k)
+            np.testing.assert_allclose(got[group][k], v, rtol=1e-4,
+                                       atol=1e-4, err_msg=f"{group}/{k}")

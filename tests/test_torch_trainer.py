@@ -4,7 +4,7 @@ a small width: N trainer iterations equal N direct make_train_step calls on
 the same loader batches, bit for bit; checkpoints round-trip the whole
 TrainState; resume continues the step count; the ImageNet npz graft counts
 as the JAX function counts; a trained checkpoint grafts leaf by leaf; and
-what is missing or not ported raises."""
+what is missing raises."""
 
 from __future__ import annotations
 
@@ -275,16 +275,20 @@ def test_trained_checkpoint_grafts_matching_leaves(run, tmp_path):
 
 
 def test_what_is_missing_or_not_ported_raises(run, tmp_path):
+    """Absent weights raise; so does evaluation on this tree, which has no
+    val split: from the trainer's TEST.EVAL_PERIOD, from --eval-only and
+    from Trainer.test."""
     root = run[0]
     with pytest.raises(FileNotFoundError, match="not found"):
         train_net.main(_argv(root, tmp_path / "a", **{
             "MODEL.WEIGHTS": str(tmp_path / "absent")}))
-    with pytest.raises(NotImplementedError, match="TEST.EVAL_PERIOD 0"):
-        train_net.main(_argv(root, tmp_path / "b",
-                             **{"TEST.EVAL_PERIOD": 5}))
-    with pytest.raises(NotImplementedError, match="evaluation slice"):
+    missing = "cityscapes_panoptic_val.json"
+    with pytest.raises(AssertionError, match=missing):
+        train_net.main(_argv(root, tmp_path / "b", **{
+            "TEST.EVAL_PERIOD": 1, "SOLVER.MAX_ITER": 1}))
+    with pytest.raises(AssertionError, match=missing):
         train_net.main(["--eval-only", *_argv(root, tmp_path / "c")])
-    with pytest.raises(NotImplementedError, match="evaluation slice"):
+    with pytest.raises(AssertionError, match=missing):
         run[1].test()
 
 
