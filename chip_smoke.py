@@ -64,7 +64,8 @@ Phases, each printing its findings:
      against the CPU with GRAD_ACCUM_STEPS 2, REMAT, SGD, FREEZE_AT 2 and
      WarmupCosineLR (batch 4, 128x256), held to phase 5's bars;
   8. the trainer from a dataset on disk: a Cityscapes-layout panoptic tree
-     of 8 frames at 1024x2048 (with their -/+1 sequence frames, panoptic
+     of 8 frames at 1024x2048 (each also in the sequence directory with
+     its -/+1 frames, panoptic
      PNGs of road, sky, a person and two cars, camera and panoptic JSON)
      written by data.write_cityscapes_tree into a temporary directory,
      every PNG read back
@@ -105,7 +106,22 @@ Phases, each printing its findings:
      each evaluator and the GT PNG reads; then the multi-scale + flip TTA
      of the pseudo-label YAML (panoptic only) from the ImageNet npz with
      seeded heads, its images/s and peak memory;
-  10. a JSON line of kernel numbers (with each path's launches), the total
+  10. the serving entry points on the trainer tree, with the trainer's
+     model_final: the Predictor on the Fine YAML with the tree's camera
+     JSON on 3 frames of 1024x2048, each call one center_argmin launch
+     and its outputs equal, bit for bit, to the frame built on the same
+     model and called on the same resized image and co-augmented camera;
+     ms per call (host clock) and one call's stages (resize, copy in,
+     frame, copy out); predict_batch at batch 4: outputs=("panoptic",)
+     equal to the full dict's, materialize=False returning tensors on
+     the card, an unknown key and "points" without a camera raising; the
+     pseudo-label YAML's Predictor (TTA, panoptic only) on one frame;
+     tools.demo on 2 frames with --calib --save-pcl (every file decodes);
+     tools.generate_pseudo_labels on the tree's 8 video-sequence frames at
+     --batch 4 with --convert-json (8 uint16 label PNGs, 8 annotations,
+     launches = device batches = 2, the steady img/s line); tools.bench
+     with --breakdown (fps and stage rows), then --repeat 3 (mean ± σ);
+  11. a JSON line of kernel numbers (with each path's launches), the total
      elapsed seconds, nvidia-smi's line, and as the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -124,6 +140,7 @@ T_START = time.perf_counter()  # elapsed seconds include the imports
 import argparse
 import contextlib
 import ctypes
+import io
 import itertools
 import json
 import math
@@ -180,7 +197,12 @@ from mgnet_tpu_torch.data.image_io import (
     resize_nearest_reference,
 )
 from mgnet_tpu_torch.geometry import Camera, Pose, synthesis_coords
-from mgnet_tpu_torch.inference import build_fused_inference, statics_from_meta
+from mgnet_tpu_torch.inference import (
+    Predictor,
+    build_fused_inference,
+    fusion_kwargs,
+    statics_from_meta,
+)
 from mgnet_tpu_torch.models import build_model, init_random_
 from mgnet_tpu_torch.ops import _build
 from mgnet_tpu_torch.ops.center_argmin import (
@@ -202,7 +224,12 @@ from mgnet_tpu_torch.postprocessing.panoptic import (
     find_instance_centers,
     panoptic_fusion,
 )
-from mgnet_tpu_torch.tools import train_net
+from mgnet_tpu_torch.tools import (
+    bench,
+    demo,
+    generate_pseudo_labels,
+    train_net,
+)
 from mgnet_tpu_torch.train import create_train_state, make_train_step
 from mgnet_tpu_torch.train.step import normalize_images
 from mgnet_tpu_torch.train.trainer import Trainer, evaluate_dataset
@@ -244,6 +271,14 @@ TRAINER_OPTS: tuple = ()
 VAL_SIZES = ((TREE_H, TREE_W),) * 6 + ((1000, 2000),)
 EVAL_OPTS: tuple = ()
 SMALL_VAL = ((128, 256),) * 6 + ((120, 240),)
+# the serving phase: the trainer tree's frames through the Predictor (3
+# calls), its batch of SERVE_BATCH, the pseudo-label TTA predictor, the
+# demo (2 frames), the pseudo-label tool on the tree's 8 video-sequence
+# frames at --batch SERVE_BATCH, and the bench; SERVE_OPTS are extra
+# overrides and BENCH_ARGS extra bench flags (none on the card)
+SERVE_BATCH = 4
+SERVE_OPTS: tuple = ()
+BENCH_ARGS: tuple = ()
 PANOPTIC_KEYS = ["PQ", "SQ", "RQ", "PQ_th", "SQ_th", "RQ_th", "PQ_st",
                  "SQ_st", "RQ_st"]
 DEPTH_KEYS = ["Abs Rel", "Sq Rel", "RMSE", "RMSE log", "δ < 1.25",
@@ -268,6 +303,12 @@ SSIM_FWD_OPS = 55
 
 def log(*args):
     print(*args, flush=True)
+
+
+def sync():
+    """Wait for the card (nothing to wait for with DEVICE "cpu")."""
+    if DEVICE != "cpu":
+        torch.cuda.synchronize()
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -1013,13 +1054,8 @@ def plain_panoptic(out, pp, argmin):
     """Panoptic fusion of a frame's head outputs, clustered by ``argmin``
     (the plain version, or a function that calls it)."""
     with torch.inference_mode():
-        return panoptic_fusion(
-            out["sem_seg"], out["center"], out["offset"],
-            num_classes=pp.num_classes, last_stuff_id=pp.last_stuff_id,
-            label_divisor=pp.label_divisor, stuff_area=pp.stuff_area,
-            void_label=-1, threshold=pp.center_threshold,
-            nms_kernel=pp.nms_kernel, max_instances=pp.max_instances,
-            argmin=argmin)
+        return panoptic_fusion(out["sem_seg"], out["center"], out["offset"],
+                               **fusion_kwargs(pp), argmin=argmin)
 
 
 def frame_shapes(cfg, h, w):
@@ -1572,7 +1608,8 @@ def phase_trainer(smi, root: Path):
         str(root), TREE_FRAMES, TREE_H, TREE_W, seed=SEED,
         val_sizes=VAL_SIZES).items()}
     log(f"[trainer] wrote {len(written)} PNGs ({TREE_FRAMES} frames at "
-        f"{TREE_H}x{TREE_W}, -/+1 sequence frames, panoptic labels; val "
+        f"{TREE_H}x{TREE_W}, each with itself and its -/+1 frames in the "
+        f"sequence directory, panoptic labels; val "
         f"frames {list(VAL_SIZES)} with panoptic labels and 16-bit "
         f"disparity) in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -1782,7 +1819,6 @@ def eval_probe(timed: bool = False):
     ``extract_instances`` and of the GT PNG reads."""
     rec = {"batches": 0, "argmin": {}, "stage_ms": defaultdict(list),
            "host_ms": defaultdict(list)}
-    sync = torch.cuda.synchronize if DEVICE != "cpu" else (lambda: None)
     marks = {}
     argmin = panoptic_fusion.__kwdefaults__["argmin"]
     originals = {name: getattr(trainer_module, name) for name in
@@ -1963,6 +1999,286 @@ def phase_eval(smi, root: Path):
     return launches
 
 
+def host_ms(fn, *args, **kwargs):
+    """(fn's result, host ms of the call with the card synchronised after
+    it)."""
+    sync()
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    sync()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def same_outputs(tag, got, want):
+    """Numpy dicts equal bit for bit, key for key (NaN where NaN)."""
+    if list(got) != list(want):
+        raise AssertionError(f"{tag}: keys {list(got)} != {list(want)}")
+    for k, v in want.items():
+        if got[k].dtype != v.dtype or not np.array_equal(
+                got[k], v, equal_nan=v.dtype.kind == "f"):
+            raise AssertionError(f"{tag}: {k} differs")
+
+
+@contextlib.contextmanager
+def tee_stream(name: str):
+    """Copy what is written to sys.<name> within the block into a
+    StringIO (yielded) and on to the stream."""
+    stream, buf = getattr(sys, name), io.StringIO()
+
+    class Tee:
+        def write(self, text):
+            buf.write(text)
+            return stream.write(text)
+
+        def flush(self):
+            stream.flush()
+
+    setattr(sys, name, Tee())
+    try:
+        yield buf
+    finally:
+        setattr(sys, name, stream)
+
+
+def serve_predictor(smi, root: Path):
+    """The Predictor on the Fine YAML with the trainer's model_final and
+    the tree's camera: 3 calls, each one center_argmin launch and equal to
+    the frame built on the same model and called on the same resized
+    image and co-augmented camera; its host stages; then predict_batch at
+    SERVE_BATCH. Returns the launches of each path and the images."""
+    frames = sorted((root / "cityscapes" / "leftImg8bit" / "train" /
+                     "synth").glob("*.png"))
+    camera = root / "cityscapes" / "camera" / "train" / "synth" / \
+        frames[0].name.replace("_leftImg8bit.png", "_camera.json")
+    model_final = str(root / "out" / "model_final")
+    cfg = load_config(str(CONFIG_DIR / "MGNet-Cityscapes-Fine.yaml"),
+                      ["MODEL.WEIGHTS", model_final, *SERVE_OPTS])
+    pred = Predictor(cfg, calibration_info=json.loads(camera.read_text()),
+                     device=DEVICE)
+    direct = build_fused_inference(pred.model, pred.statics,
+                                   cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD,
+                                   device=DEVICE)
+    images = [read_png(p) for p in frames[:SERVE_BATCH]]
+    launches = {"predictor": 0}
+    call_ms = []
+    for i, img in enumerate(images[:3]):
+        center_argmin.launches = 0
+        out, ms = host_ms(pred, img)
+        n = center_argmin.launches
+        launches["predictor"] += n
+        call_ms.append(ms)
+        if n != 1:
+            raise AssertionError(f"Predictor call {i}: {n} center_argmin "
+                                 "launches, expected 1")
+        resized, K_, height = pred.prepare(img)
+        want = direct(resized[None], K_[None],
+                      np.array([height], np.float32))
+        same_outputs(f"Predictor call {i}",
+                     out, {k: v[0].cpu().numpy() for k, v in want.items()})
+    # one call's host stages: resize, copy in, frame, copy out
+    (resized, K_, height), resize_ms = host_ms(pred.prepare, images[0])
+    image_dev, copy_in_ms = host_ms(
+        lambda: torch.from_numpy(resized[None]).to(DEVICE))
+    cam = (torch.from_numpy(K_[None]).to(DEVICE),
+           torch.tensor([height], device=DEVICE))
+    out, frame_ms = host_ms(direct, image_dev, *cam)
+    _, copy_out_ms = host_ms(lambda: {k: v[0].cpu().numpy()
+                                      for k, v in out.items()})
+    log(f"[serve] Predictor ({cfg.MODEL.COMPUTE_DTYPE}, model_final, the "
+        f"tree's camera) on {len(call_ms)} frames of {images[0].shape[0]}x"
+        f"{images[0].shape[1]}: outputs {list(out)} equal the frame called "
+        f"directly, bit for bit; center_argmin 1 launch a call; ms per call "
+        f"(host clock) {', '.join(f'{t:.1f}' for t in call_ms)}; one call's "
+        f"stages: resize {resize_ms:.1f}, copy in {copy_in_ms:.1f}, frame "
+        f"{frame_ms:.1f}, copy out {copy_out_ms:.1f} ms; {smi}")
+
+    batch = np.stack([pred.prepare(img)[0] for img in images])
+    center_argmin.launches = 0
+    full, full_ms = host_ms(pred.predict_batch, batch)
+    only, only_ms = host_ms(pred.predict_batch, batch, outputs=("panoptic",))
+    lazy, lazy_ms = host_ms(pred.predict_batch, batch, outputs=("panoptic",),
+                            materialize=False)
+    launches["predict_batch"] = center_argmin.launches
+    if launches["predict_batch"] != 3:
+        raise AssertionError(f"predict_batch: {launches['predict_batch']} "
+                             "center_argmin launches for 3 batches")
+    if list(only) != ["panoptic"] or not np.array_equal(
+            only["panoptic"], full["panoptic"]):
+        raise AssertionError("predict_batch outputs=('panoptic',) differs "
+                             "from the full dict's panoptic")
+    if lazy["panoptic"].device.type != torch.device(DEVICE).type \
+            or not np.array_equal(lazy["panoptic"].cpu().numpy(),
+                                  full["panoptic"]):
+        raise AssertionError("predict_batch materialize=False: "
+                             f"{lazy['panoptic'].device}, or it differs")
+    for outputs, match in ((("panoptic", "nonsense"), "not produced"),
+                           (("points",), "requires camera_matrix")):
+        try:
+            pred.predict_batch(batch, outputs=outputs)
+        except ValueError as e:
+            if match not in str(e):
+                raise
+        else:
+            raise AssertionError(f"predict_batch outputs={outputs} did not "
+                                 "raise")
+    log(f"[serve] predict_batch [{len(batch)}, {batch.shape[1]}, "
+        f"{batch.shape[2]}, 3]: full dict {list(full)} {full_ms:.1f} ms, "
+        f"('panoptic',) {only_ms:.1f} ms and equal, materialize=False "
+        f"{lazy_ms:.1f} ms on {lazy['panoptic'].device} and equal (host "
+        f"clock, synchronised); an unknown key and 'points' without a "
+        f"camera raise ValueError; center_argmin 1 launch a batch")
+    del pred, direct, full, lazy, out
+    return launches, frames, camera, model_final
+
+
+def serve_tools(smi, root: Path, frames, camera, model_final):
+    """The pseudo-label TTA predictor on one frame, tools.demo on two
+    frames, tools.generate_pseudo_labels on the tree's video-sequence
+    frames; returns the launches of each path."""
+    launches = {}
+    npz = str(ROOT / "weights" / "imagenet_weights.npz")
+    pseudo_yaml = str(CONFIG_DIR /
+                      "MGNet-Cityscapes-PseudoLabelGeneration.yaml")
+    pcfg = load_config(pseudo_yaml, ["MODEL.WEIGHTS", npz, *SERVE_OPTS])
+    pcfg.WITH_DEPTH = False
+    ppred = Predictor(pcfg, device=DEVICE)
+    img = read_png(frames[0])
+    if DEVICE != "cpu":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    center_argmin.launches = 0
+    out, ms = host_ms(ppred, img)
+    launches["pseudo-label-predictor"] = center_argmin.launches
+    h, w = ppred.prepare(img)[0].shape[:2]
+    shapes = {k: v.shape for k, v in out.items()}
+    want = {"panoptic": (h, w), "sem_seg": (h, w), "center": (h, w),
+            "offset": (h, w, 2)}
+    if shapes != want or launches["pseudo-label-predictor"] != 1:
+        raise AssertionError(f"pseudo-label Predictor: {shapes}, "
+                             f"{launches['pseudo-label-predictor']} launches")
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if DEVICE != "cpu"
+            else float("nan"))
+    log(f"[serve] pseudo-label Predictor (TTA, panoptic only, ImageNet npz): "
+        f"{shapes}, 1 center_argmin launch, {ms:.1f} ms (host clock), peak "
+        f"allocated {peak:.3f} GiB")
+    del ppred
+
+    out_dir = root / "demo"
+    center_argmin.launches = 0
+    t0 = time.perf_counter()
+    demo.main(["--input", *map(str, frames[:2]), "--config-file",
+               str(CONFIG_DIR / "MGNet-Cityscapes-Fine.yaml"), "--calib",
+               str(camera), "--save-pcl", "--output", str(out_dir),
+               "--device", DEVICE, "MODEL.WEIGHTS", model_final,
+               *SERVE_OPTS])
+    demo_s = time.perf_counter() - t0
+    launches["demo"] = center_argmin.launches
+    for f in frames[:2]:
+        for kind in ("panoptic", "instances", "depth"):
+            a = read_png(out_dir / f"{f.stem}_{kind}.png")
+            if a.shape != (h, w, 3) or a.dtype != np.uint8:
+                raise AssertionError(f"demo {kind}: {a.shape} {a.dtype}")
+        points = np.load(out_dir / f"{f.stem}_points.npy")
+        if points.shape != (h, w, 3):
+            raise AssertionError(f"demo points: {points.shape}")
+    if launches["demo"] != 2:
+        raise AssertionError(f"demo: {launches['demo']} launches")
+    log(f"[serve] tools.demo on 2 frames with --calib --save-pcl: "
+        f"_panoptic/_instances/_depth.png decode as [{h}, {w}, 3] uint8, "
+        f"_points.npy [{h}, {w}, 3]; 2 center_argmin launches; {demo_s:.1f} "
+        f"s with set-up")
+
+    DatasetCatalog.clear()
+    MetadataCatalog.clear()
+    labels, js = root / "pseudo", root / "pseudo.json"
+    calls = {"n": 0}
+    predict_batch = Predictor.predict_batch
+
+    def counting(self, *args, **kwargs):
+        calls["n"] += 1
+        return predict_batch(self, *args, **kwargs)
+
+    Predictor.predict_batch = counting
+    center_argmin.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with tee_stream("stdout") as printed:
+            generate_pseudo_labels.main([
+                "--config-file", pseudo_yaml, "--data-root", str(root),
+                "--weights", npz, "--output", str(labels), "--batch",
+                str(SERVE_BATCH), "--convert-json", str(js), "--device",
+                DEVICE, *SERVE_OPTS])
+    finally:
+        Predictor.predict_batch = predict_batch
+        DatasetCatalog.clear()
+        MetadataCatalog.clear()
+    tool_s = time.perf_counter() - t0
+    launches["pseudo-labels"] = center_argmin.launches
+    written = sorted(labels.glob("*_instanceIds.png"))
+    n_frames = len(frames)
+    dtypes = {read_png(p).dtype for p in written}
+    anns = json.loads(js.read_text())["annotations"]
+    if len(written) != n_frames or dtypes != {np.dtype(np.uint16)} \
+            or len(anns) != n_frames:
+        raise AssertionError(f"pseudo labels: {len(written)} PNGs of "
+                             f"{dtypes}, {len(anns)} annotations")
+    want = math.ceil(n_frames / SERVE_BATCH)
+    if not launches["pseudo-labels"] == calls["n"] == want:
+        raise AssertionError(f"pseudo labels: {launches['pseudo-labels']} "
+                             f"launches, {calls['n']} batches, expected "
+                             f"{want}")
+    steady = [ln for ln in printed.getvalue().splitlines()
+              if "steady-state" in ln]
+    log(f"[serve] tools.generate_pseudo_labels ({pseudo_yaml.split('/')[-1]}"
+        f", TTA, --batch {SERVE_BATCH}): {len(written)} uint16 label PNGs, "
+        f"{len(anns)} annotations in the JSON, {calls['n']} device batches "
+        f"= {launches['pseudo-labels']} center_argmin launches, {tool_s:.1f} "
+        f"s with set-up and conversion; {steady[0]}; {smi}")
+    return launches
+
+
+def serve_bench(smi):
+    """tools.bench with --breakdown in this process (its launches counted),
+    then --repeat 3 in fresh processes."""
+    center_argmin.launches = 0
+    with tee_stream("stderr") as err:
+        rec = bench.main(["--breakdown", "--device", DEVICE, *BENCH_ARGS])
+    launches = center_argmin.launches
+    want = (bench.WARMUP + bench.ITERS) + (bench.WARMUP + bench.STAGE_ITERS)
+    rows = [ln.split(":")[0][2:] for ln in err.getvalue().splitlines()[1:]]
+    if rows != ["model_forward", "panoptic_fusion_kernel",
+                "panoptic_fusion_plain", "dgc_scaling", "full_fused"] \
+            or launches != want or not rec["value"] > 0:
+        raise AssertionError(f"bench: rows {rows}, {launches} launches "
+                             f"(expected {want}), {rec}")
+    with tee_stream("stderr"):
+        rep = bench.main(["--repeat", "3", "--device", DEVICE, *BENCH_ARGS])
+    if len(rep["runs"]) != 3 or not math.isfinite(rep["std"]):
+        raise AssertionError(f"bench --repeat 3: {rep}")
+    log(f"[serve] tools.bench: {rec['value']} fps ({rec['metric']}), "
+        f"center_argmin {launches} launches (60 frames, 40 fused stages); "
+        f"--repeat 3: {rep['value']} ± {rep['std']} fps, runs {rep['runs']}"
+        f"; {smi}")
+    return {"bench": launches}
+
+
+def phase_serving(smi, root: Path):
+    """The serving entry points on the trainer tree under ``root`` (with
+    the trainer's model_final): returns center_argmin's launches by path,
+    each counted from 0 just before it."""
+    t0 = time.perf_counter()
+    launches, frames, camera, model_final = serve_predictor(smi, root)
+    if DEVICE != "cpu":
+        torch.cuda.empty_cache()
+    launches.update(serve_tools(smi, root, frames, camera, model_final))
+    if DEVICE != "cpu":
+        torch.cuda.empty_cache()
+    launches.update(serve_bench(smi))
+    log(f"[serve] phase {time.perf_counter() - t0:.1f} s; center_argmin "
+        f"launches by path {launches}")
+    return launches
+
+
 def phase_cpu_vs_card_eval(root: Path):
     """The f32 evaluate_dataset on the card against the same call on the
     CPU, at narrow widths, on a tree of SMALL_VAL frames under ``root``:
@@ -2066,10 +2382,11 @@ def main() -> int:
         trainer_paths = dict(zip(("trainer", "trainer-resume"),
                                  phase_trainer(smi, Path(tmp))))
         eval_paths = phase_eval(smi, Path(tmp))
+        serving_paths = phase_serving(smi, Path(tmp))
     rows[0]["launches_by_path"] = {
         "serving": rows[0]["launches"], **frame_paths,
         "trainer-eval": trainer_paths["trainer-resume"].pop("center_argmin"),
-        **eval_paths}
+        **eval_paths, **serving_paths}
     for row in rows[1:]:
         row["launches_by_path"] = {"train": row["launches"], **{
             tag: n[row["name"]] for tag, n in

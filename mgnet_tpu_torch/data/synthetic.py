@@ -144,6 +144,9 @@ def write_cityscapes_tree(root: str, frames: int, height: int, width: int,
     ``cityscapes_fine_scene_seg_train``): ``frames`` frames of height x
     width, each with its -/+1 sequence frames, a panoptic PNG of road and
     sky with a person and two cars, a camera JSON, and the panoptic JSON.
+    As in Cityscapes, the sequence directory also holds each frame itself,
+    so that the video-sequence split registered for pseudo-label
+    generation (``pseudo_label_generation=True``) reads the same frames.
     With ``val_sizes``, also the split read as
     ``cityscapes_fine_scene_seg_val``: one frame of each (height, width),
     with its panoptic PNG, 16-bit disparity PNG and camera JSON, and the
@@ -165,7 +168,7 @@ def write_cityscapes_tree(root: str, frames: int, height: int, width: int,
         stem = f"{city}_000000_{idx:06d}"
         cur, prev, nxt = _tree_frame(rng, h, w)
         written[os.path.join(img_dir, f"{stem}_leftImg8bit.png")] = cur
-        for i, a in ((idx - 1, prev), (idx + 1, nxt)):
+        for i, a in ((idx - 1, prev), (idx, cur), (idx + 1, nxt)):
             written[os.path.join(
                 seq_dir, f"{city}_000000_{i:06d}_leftImg8bit.png")] = a
         pan = _tree_panoptic(rng, h, w)

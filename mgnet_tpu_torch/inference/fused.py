@@ -40,7 +40,8 @@ from mgnet_tpu_torch.postprocessing.depth import dgc_scale_factor
 from mgnet_tpu_torch.postprocessing.panoptic import panoptic_fusion
 from mgnet_tpu_torch.train.step import normalize_images
 
-__all__ = ["PostprocessStatics", "build_fused_inference", "statics_from_meta"]
+__all__ = ["PostprocessStatics", "build_fused_inference", "fusion_kwargs",
+           "statics_from_meta"]
 
 
 class PostprocessStatics(NamedTuple):
@@ -84,6 +85,14 @@ def statics_from_meta(cfg, metadata) -> PostprocessStatics:
         depth_filter_ids=filter_ids,
         use_dgc=pp.USE_DGC_SCALING,
     )
+
+
+def fusion_kwargs(s: PostprocessStatics) -> dict:
+    """``panoptic_fusion``'s keyword arguments from the statics (void -1)."""
+    return dict(num_classes=s.num_classes, last_stuff_id=s.last_stuff_id,
+                label_divisor=s.label_divisor, stuff_area=s.stuff_area,
+                void_label=-1, threshold=s.center_threshold,
+                nms_kernel=s.nms_kernel, max_instances=s.max_instances)
 
 
 def build_fused_inference(model, statics: PostprocessStatics,
@@ -142,17 +151,8 @@ def build_fused_inference(model, statics: PostprocessStatics,
                 out["center"].float(), out_hw)[..., 0]
             offset = interpolate_bilinear(
                 out["offset"].float(), out_hw) * float(stride)
-            panoptic = panoptic_fusion(
-                sem, center, offset,
-                num_classes=s.num_classes,
-                last_stuff_id=s.last_stuff_id,
-                label_divisor=s.label_divisor,
-                stuff_area=s.stuff_area,
-                void_label=-1,
-                threshold=s.center_threshold,
-                nms_kernel=s.nms_kernel,
-                max_instances=s.max_instances,
-            )
+            panoptic = panoptic_fusion(sem, center, offset,
+                                       **fusion_kwargs(s))
             result.update(sem_seg=sem, panoptic=panoptic, center=center,
                           offset=offset)
 

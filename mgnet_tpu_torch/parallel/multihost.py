@@ -1,21 +1,37 @@
 """Host-side helpers for several processes.
 
-Port of ``mgnet_tpu/parallel/multihost.py:52-111``: the process count and
-index, a barrier, and the two gathers that the evaluators and
-``evaluate_dataset`` call. They run over ``torch.distributed`` when its
-default group is initialized (the caller initializes it, with its own
-address, world size and rank), and as the one process otherwise.
+Port of ``mgnet_tpu/parallel/multihost.py``: ``initialize_distributed``,
+the process count and index, a barrier, and the two gathers that the
+evaluators and ``evaluate_dataset`` call. They run over
+``torch.distributed`` when its default group is initialized (by
+``initialize_distributed``, or by the caller with its own address, world
+size and rank), and as the one process otherwise.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch.distributed as dist
 
-__all__ = ["all_gather_host", "all_gather_objects", "is_main_process",
-           "process_count", "process_index", "synchronize"]
+__all__ = ["all_gather_host", "all_gather_objects", "initialize_distributed",
+           "is_main_process", "process_count", "process_index",
+           "synchronize"]
+
+
+def initialize_distributed(coordinator_address: Optional[str] = None,
+                           num_processes: Optional[int] = None,
+                           process_id: Optional[int] = None) -> None:
+    """Join ``num_processes`` processes (a no-op for one) in a gloo group
+    whose TCP store listens at ``coordinator_address`` ("host:port", bound
+    by process 0); this process is ``process_id``. Gloo carries the host
+    helpers below: barriers and object gathers."""
+    if num_processes is None or num_processes <= 1:
+        return
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://{coordinator_address}",
+        world_size=num_processes, rank=process_id)
 
 
 def _initialized() -> bool:

@@ -36,9 +36,8 @@ from mgnet_tpu_torch.data import (
 )
 from mgnet_tpu_torch.models import build_model, init_random_
 from mgnet_tpu_torch.train.trainer import Trainer, evaluate_dataset
-from mgnet_tpu_torch.utils.checkpoint import load_params
 from mgnet_tpu_torch.utils.events import MetricLogger
-from mgnet_tpu_torch.utils.weights import load_pretrained_npz
+from mgnet_tpu_torch.utils.weights import load_eval_weights
 
 __all__ = ["eval_only", "load_eval_weights", "main", "parse_args",
            "register_datasets", "setup"]
@@ -83,33 +82,6 @@ def register_datasets(args):
             register(root)
         except KeyError:
             pass  # registered already in this process
-
-
-def load_eval_weights(model: torch.nn.Module, weights: str) -> None:
-    """Load ``weights`` into an eval model: a ``model_final`` directory
-    (``save_params``'s; every entry of the model must be there, with its
-    shape; the training model's extra leaves, such as the pose net, are
-    left out), or an npz of JAX-layout arrays grafted where name and shape
-    match (the rest keep their values; zero matches raise)."""
-    if not weights:
-        raise ValueError("evaluation needs MODEL.WEIGHTS: a model_final "
-                         "directory or an npz")
-    if os.path.isdir(weights):
-        src = {k[len("model."):] if k.startswith("model.") else k: v
-               for k, v in load_params(weights).items()}
-        dst = model.state_dict()
-        bad = sorted(k for k, v in dst.items()
-                     if k not in src or src[k].shape != v.shape)
-        if bad:
-            raise ValueError(
-                f"MODEL.WEIGHTS={weights!r} lacks {len(bad)} entries of the "
-                f"model or has them in another shape: {bad[:6]}")
-        model.load_state_dict({k: src[k] for k in dst})
-        return
-    info = load_pretrained_npz(weights, model)
-    if info["matched"] == 0:
-        raise ValueError(f"MODEL.WEIGHTS={weights!r} matched zero "
-                         f"parameter leaves ({info})")
 
 
 def eval_only(cfg, device="cuda") -> Dict[str, Dict[str, float]]:

@@ -55,7 +55,7 @@ from mgnet_tpu_torch.evaluation import (
     SemSegEvaluator,
 )
 from mgnet_tpu_torch.geometry.image import interpolate_bilinear
-from mgnet_tpu_torch.inference.fused import statics_from_meta
+from mgnet_tpu_torch.inference.fused import fusion_kwargs, statics_from_meta
 from mgnet_tpu_torch.inference.tta import multi_scale_flip_inference
 from mgnet_tpu_torch.inference.visualizer import Visualizer
 from mgnet_tpu_torch.models import build_model, init_random_
@@ -378,17 +378,8 @@ def evaluate_dataset(cfg, model, dataset_name: Optional[str] = None,
             center = to_full(out["center"].float())
             offset = to_full(out["offset"].float())
             sem = torch.argmax(sem_logits.permute(0, 3, 1, 2), dim=1).int()
-            pan = panoptic_fusion(
-                sem, center[..., 0], offset,
-                num_classes=statics.num_classes,
-                last_stuff_id=statics.last_stuff_id,
-                label_divisor=statics.label_divisor,
-                stuff_area=statics.stuff_area,
-                void_label=-1,
-                threshold=statics.center_threshold,
-                nms_kernel=statics.nms_kernel,
-                max_instances=statics.max_instances,
-            )
+            pan = panoptic_fusion(sem, center[..., 0], offset,
+                                  **fusion_kwargs(statics))
             res["sem"] = sem.to(torch.uint8)
             res["pan"] = pan.to(torch.int16)
             res["center"] = center[..., 0].half()

@@ -20,18 +20,24 @@ leaf.
 ``load_pretrained_npz`` grafts an npz of such keys (the ImageNet init,
 ``weights/imagenet_weights.npz``) into a module wherever key and shape
 match, as ``mgnet_tpu/utils/weights.py::load_pretrained_npz`` does.
+``load_eval_weights`` loads what ``--eval-only`` and the ``Predictor`` are
+given: a ``model_final`` directory or such an npz.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Mapping
 
+import os
+
 import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["jax_key", "load_jax_params", "load_pretrained_npz",
-           "to_jax_arrays", "torch_key"]
+from mgnet_tpu_torch.utils.checkpoint import load_params
+
+__all__ = ["jax_key", "load_eval_weights", "load_jax_params",
+           "load_pretrained_npz", "to_jax_arrays", "torch_key"]
 
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
          "mean": "running_mean", "var": "running_var",
@@ -134,3 +140,30 @@ def load_pretrained_npz(npz_path: str, module: nn.Module) -> Dict[str, int]:
             target[name].copy_(v)
             matched += 1
     return {"matched": matched, "skipped": skipped}
+
+
+def load_eval_weights(model: torch.nn.Module, weights: str) -> None:
+    """Load ``weights`` into an eval model: a ``model_final`` directory
+    (``save_params``'s; every entry of the model must be there, with its
+    shape; the training model's extra leaves, such as the pose net, are
+    left out), or an npz of JAX-layout arrays grafted where name and shape
+    match (the rest keep their values; zero matches raise)."""
+    if not weights:
+        raise ValueError("evaluation needs MODEL.WEIGHTS: a model_final "
+                         "directory or an npz")
+    if os.path.isdir(weights):
+        src = {k[len("model."):] if k.startswith("model.") else k: v
+               for k, v in load_params(weights).items()}
+        dst = model.state_dict()
+        bad = sorted(k for k, v in dst.items()
+                     if k not in src or src[k].shape != v.shape)
+        if bad:
+            raise ValueError(
+                f"MODEL.WEIGHTS={weights!r} lacks {len(bad)} entries of the "
+                f"model or has them in another shape: {bad[:6]}")
+        model.load_state_dict({k: src[k] for k in dst})
+        return
+    info = load_pretrained_npz(weights, model)
+    if info["matched"] == 0:
+        raise ValueError(f"MODEL.WEIGHTS={weights!r} matched zero "
+                         f"parameter leaves ({info})")

@@ -457,3 +457,104 @@ def test_eval_batch_on_the_card_matches_the_cpu(tmp_path):
             assert np.isfinite(got[group][k]), (group, k)
             np.testing.assert_allclose(got[group][k], v, rtol=1e-4,
                                        atol=1e-4, err_msg=f"{group}/{k}")
+
+
+def _serving_predictors(tta=False):
+    """A seeded narrow f32 Predictor on the card and one on the CPU with
+    the same weights, at a test size of 128x256."""
+    from mgnet_tpu_torch.config import get_default_config
+    from mgnet_tpu_torch.inference import Predictor
+    from mgnet_tpu_torch.models import build_model, init_random_
+
+    cfg = get_default_config()
+    cfg.MODEL.WEIGHTS = ""
+    cfg.MODEL.COMPUTE_DTYPE = "float32"
+    cfg.MODEL.GCM.GCM_CHANNELS = 32
+    h = cfg.MODEL.SEM_SEG_HEAD
+    h.ARM_CHANNELS, h.REFINE_CHANNELS = [32, 32], [32, 32]
+    h.FFM_CHANNELS, h.HEAD_CHANNELS = 48, 32
+    cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST = 128, 256
+    cfg.TEST.MSC_FLIP_EVAL = tta
+    calib = {"intrinsic": {"fx": 180.0, "fy": 181.0, "u0": 159.5,
+                           "v0": 79.5}, "extrinsic": {"z": 1.3}}
+    model = build_model(cfg, device="cpu")
+    init_random_(model, torch.Generator().manual_seed(0))
+    cpu = Predictor(cfg, model=model, calibration_info=calib,
+                    dataset_name="gpu_serving", device="cpu")
+    card = Predictor(cfg, model=build_model(cfg, device="cpu"),
+                     calibration_info=calib, dataset_name="gpu_serving")
+    card.model.load_state_dict(model.state_dict())
+    return cpu, card
+
+
+def _images(n, seed=0):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return [rng.randint(0, 256, (160, 320, 3)).astype(np.uint8)
+            for _ in range(n)]
+
+
+@pytest.mark.gpu
+def test_predictor_on_the_card_is_the_frame_and_matches_the_cpu():
+    """Each Predictor call on the card launches center_argmin once and
+    equals, bit for bit, the frame called directly on the same resized
+    image and camera; against the CPU (TF32 off) the panoptic maps agree
+    on >= 99.9% of pixels and the depth within 1e-4 where they agree."""
+    _need_card()
+    import numpy as np
+
+    from mgnet_tpu_torch.inference import build_fused_inference
+
+    cpu, card = _serving_predictors()
+    cfg = card.cfg
+    direct = build_fused_inference(card.model, card.statics,
+                                   cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for img in _images(2):
+            before = center_argmin.launches
+            got = card(img)
+            assert center_argmin.launches == before + 1
+            resized, K, height = card.prepare(img)
+            want = direct(resized[None], K[None],
+                          np.array([height], np.float32))
+            assert list(got) == list(want)
+            for k, v in want.items():
+                assert np.array_equal(got[k], v[0].cpu().numpy(),
+                                      equal_nan=True), k
+            ref = cpu(img)
+            same = got["panoptic"] == ref["panoptic"]
+            assert same.mean() >= 0.999
+            np.testing.assert_allclose(got["depth"][same],
+                                       ref["depth"][same], rtol=1e-4,
+                                       atol=1e-4)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tta", [False, True])
+def test_predict_batch_filter_on_the_card(tta):
+    """outputs=('panoptic',) equals the full dict's panoptic, one
+    center_argmin launch a batch; materialize=False keeps it on the
+    card."""
+    _need_card()
+    import numpy as np
+
+    _, card = _serving_predictors(tta)
+    batch = np.stack([card.prepare(i)[0] for i in _images(3, seed=1)])
+    before = center_argmin.launches
+    full = card.predict_batch(batch)
+    only = card.predict_batch(batch, outputs=("panoptic",))
+    lazy = card.predict_batch(batch, outputs=("panoptic",),
+                              materialize=False)
+    assert center_argmin.launches == before + 3
+    assert list(only) == ["panoptic"]
+    assert np.array_equal(only["panoptic"], full["panoptic"])
+    assert lazy["panoptic"].device.type == "cuda"
+    assert np.array_equal(lazy["panoptic"].cpu().numpy(), full["panoptic"])
