@@ -121,7 +121,25 @@ Phases, each printing its findings:
      --batch 4 with --convert-json (8 uint16 label PNGs, 8 annotations,
      launches = device batches = 2, the steady img/s line); tools.bench
      with --breakdown (fps and stage rows), then --repeat 3 (mean ± σ);
-  11. a JSON line of kernel numbers (with each path's launches), the total
+  11. data-parallel training: (a) two gloo ranks spawned on the one card
+     (NCCL refuses two ranks on one device) against one rank in this
+     process, f32, TF32 off, the Fine recipe at full width, global batch
+     4 of 256x512 (2 x 2 against 1 x 4), the same weights and batch, 2
+     steps: every loss of both steps, the first step's per-leaf gradient
+     cosine distance (median, worst) and the BN running statistics after
+     it held to bar (iii) (DIST_*), the ranks' parameters equal bit for
+     bit, and in each rank the last warp, SSIM forward and backward call
+     held to its plain version bit for bit; (b) the same two ranks in
+     bf16 at 1024x1024, global batch 4: ms/step, collectives per step and
+     the host's share of a profiled step in them, launches checked (warp
+     6, SSIM forward 8, backward 6 per step) -- two ranks sharing one
+     card, not a scaling number; (c) train_net --num-devices <cards> over
+     NCCL on the trainer tree, 2 iterations and a resume of 1: rank-0-only
+     files, the resumed state equal to its checkpoint (with 2 or more
+     cards, (a) again over NCCL across 2 cards); (d) phase 6's world-size-1
+     step called no collective and launched PARENT_LAUNCHES kernels a
+     step;
+  12. a JSON line of kernel numbers (with each path's launches), the total
      elapsed seconds, nvidia-smi's line, and as the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -145,6 +163,7 @@ import itertools
 import json
 import math
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -220,6 +239,13 @@ from mgnet_tpu_torch.ops.ssim import (
     ssim_residual_reference,
 )
 from mgnet_tpu_torch.ops.warp import warp_bilinear, warp_bilinear_reference
+from mgnet_tpu_torch.parallel import (
+    initialize_distributed,
+    replicate_,
+    shard_batch,
+    shutdown_distributed,
+)
+from mgnet_tpu_torch.parallel.collectives import CALLS as COLLECTIVES
 from mgnet_tpu_torch.postprocessing.panoptic import (
     find_instance_centers,
     panoptic_fusion,
@@ -255,12 +281,13 @@ FRAME_WARMUP, FRAME_ITERS = 5, 20
 SMALL_B, SMALL_H, SMALL_W = 4, 128, 256
 # the trainer phase: a tree of 8 Cityscapes-size frames, the Fine YAML as
 # it is (batch 12 of 1024x1024 crops) for 4 iterations, a resume for 2
-# more, 2 batches of the loader alone, and the step timed STEP_ITERS times
+# more, 1 batch of the loader alone, and the step timed STEP_ITERS times
 # after a warmup step beside each of 0, 1, cores - 1 and NUM_WORKERS loader
-# threads; TRAINER_OPTS are extra overrides (none on the card)
+# threads (each 2 before the distribution phase came, cut to keep the run
+# short); TRAINER_OPTS are extra overrides (none on the card)
 TREE_FRAMES, TREE_H, TREE_W = 8, 1024, 2048
-TRAINER_ITERS, TRAINER_RESUME, LOADER_BATCHES = 4, 2, 2
-STEP_ITERS = 2
+TRAINER_ITERS, TRAINER_RESUME, LOADER_BATCHES = 4, 2, 1
+STEP_ITERS = 1
 TRAINER_OPTS: tuple = ()
 # the eval phase: the trainer tree's val split, 6 frames of the tree's
 # size and one of 1000x2000 (a batch of TEST.IMS_PER_BATCH 4, a pow2 tail
@@ -279,6 +306,21 @@ SMALL_VAL = ((128, 256),) * 6 + ((120, 240),)
 SERVE_BATCH = 4
 SERVE_OPTS: tuple = ()
 BENCH_ARGS: tuple = ()
+# the distribution phase: DIST_RANKS gloo ranks spawned on the one card
+# against one rank in this process, f32 with TF32 off, the Fine recipe at
+# full width, global batch DIST_B at DIST_H x DIST_W for DIST_STEPS steps;
+# then the same ranks timed in bf16 at the recipe's 1024x1024, global
+# batch DIST_B (DIST_WARMUP, then DIST_TIMED steps); then train_net over
+# NCCL on every visible card, 2 iterations of DIST_CLI_PER_RANK samples
+# per rank and a resume of 1. Bar (iii): losses and BN statistics
+# DIST_REL, per-leaf gradient cosine distance median DIST_COS_MEDIAN and
+# worst DIST_COS_WORST; the parent's step launches PARENT_LAUNCHES kernels
+# (PERF.md section 5) and the world-size-1 step no collective
+DIST_RANKS, DIST_B, DIST_H, DIST_W, DIST_STEPS = 2, 4, 256, 512, 2
+DIST_WARMUP, DIST_TIMED = 1, 3
+DIST_CLI_PER_RANK = 2
+DIST_REL, DIST_COS_MEDIAN, DIST_COS_WORST = 1e-4, 1e-4, 2e-3
+PARENT_LAUNCHES = 7236
 PANOPTIC_KEYS = ["PQ", "SQ", "RQ", "PQ_th", "SQ_th", "RQ_th", "PQ_st",
                  "SQ_st", "RQ_st"]
 DEPTH_KEYS = ["Abs Rel", "Sq Rel", "RMSE", "RMSE log", "δ < 1.25",
@@ -836,10 +878,19 @@ def check_step_kernels(tag, cfg, state, batch):
     forward's last calls are the backward's recompute; under accumulation
     they are the last micro-batch's): each kernel's outputs held against
     its plain version on the same inputs, bit for bit."""
-    want = expected_launches(cfg)
     with last_kernel_calls() as kept:
         make_train_step(cfg)(state, batch)
         torch.cuda.synchronize()
+    check_kept_calls(tag, cfg, kept)
+    del kept
+    torch.cuda.empty_cache()
+
+
+def check_kept_calls(tag, cfg, kept):
+    """The last_kernel_calls() of one step of ``cfg``: as many as the step
+    launches, each kernel's outputs equal to its plain version on the
+    same inputs, bit for bit."""
+    want = expected_launches(cfg)
     calls = {name: kept[name][0] if name in kept else 0 for name in want}
     if calls != want:
         raise AssertionError(f"{tag}: the kept calls {calls} are not the "
@@ -865,8 +916,6 @@ def check_step_kernels(tag, cfg, state, batch):
     ref = ssim_residual_bwd_reference(x, y, g, weight)
     compare("dx", got[0], ref[0], 0.0, tag=f"{tag}-kernels")
     compare("dy", got[1], ref[1], 0.0, tag=f"{tag}-kernels")
-    del kept
-    torch.cuda.empty_cache()
 
 
 def train_steps(tag, cfg, state, batch, warmup, steps, smi):
@@ -914,7 +963,9 @@ def train_steps(tag, cfg, state, batch, warmup, steps, smi):
 
 
 def phase_train(smi):
-    """The joint training step at full width on the card."""
+    """The joint training step at full width on the card: returns its
+    kernel launches, the collectives its steps called (none at a world
+    size of 1) and the profiler's launches per step."""
     cfg = train_config("bfloat16")
     t0 = time.perf_counter()
     state = build_train(cfg, DEVICE)
@@ -923,10 +974,12 @@ def phase_train(smi):
     log(f"[train] Cityscapes-Fine recipe, bf16, batch {TB} of {TH}x{TW}: "
         f"{sum(p.numel() for p in state.params.parameters()) / 1e6:.2f} M "
         f"parameters, set-up {time.perf_counter() - t0:.1f} s")
+    calls = COLLECTIVES["all_reduce"]
     launches, _, _ = train_steps("train", cfg, state, batch, TRAIN_WARMUP,
                                  TRAIN_STEPS, smi)
-    train_breakdown(state, make_train_step(cfg), batch)
-    return launches
+    calls = COLLECTIVES["all_reduce"] - calls
+    per_step = train_breakdown(state, make_train_step(cfg), batch)
+    return launches, calls, per_step
 
 
 def train_breakdown(state, step, batch, tag="train"):
@@ -952,6 +1005,7 @@ def train_breakdown(state, step, batch, tag="train"):
     for dev_ms, count, key in sorted(rows, reverse=True)[:15]:
         log(f"[{tag}-breakdown]   {dev_ms:8.3f} ms/step  x{count:6.1f}  "
             f"{key[:90]}")
+    return sum(r[1] for r in rows)
 
 
 def cosine_distance(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -2279,6 +2333,311 @@ def phase_serving(smi, root: Path):
     return launches
 
 
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def step_record(state, metrics, grads: bool):
+    """A step's losses (host floats), BN running statistics and, with
+    ``grads``, every parameter's gradient, all on the CPU."""
+    out = {"metrics": {k: float(v) for k, v in metrics.items()},
+           "stats": {k: v.detach().cpu().clone() for k, v in
+                     state.params.state_dict().items()
+                     if k.endswith(("running_mean", "running_var"))}}
+    if grads:
+        out["grads"] = {n: p.grad.detach().cpu().clone() for n, p in
+                        state.params.named_parameters()
+                        if p.grad is not None}
+    return out
+
+
+def dist_equal_steps(device, rank: int, world: int):
+    """DIST_STEPS f32 steps of the Fine recipe on this rank's part of the
+    global batch (all of it at world 1), the last with its kernel calls
+    kept and held to their plain versions: each step's record (the first
+    with gradients), the parameters after and the launches."""
+    cfg = train_config("float32")
+    state = build_train(cfg, device)
+    replicate_(state.params)  # as the Trainer does: rank 0's weights
+    batch = shard_batch(train_batch(DIST_B, DIST_H, DIST_W, device), 1,
+                        rank, world)
+    step = make_train_step(cfg)
+    records = []
+    reset_counts()
+    for i in range(DIST_STEPS):
+        if i < DIST_STEPS - 1:
+            _, m = step(state, batch)
+        else:
+            with last_kernel_calls() as kept:
+                _, m = step(state, batch)
+                torch.cuda.synchronize()
+        records.append(step_record(state, m, grads=i == 0))
+    launches = counts()
+    check_kept_calls(f"dist-rank{rank}", cfg, kept)
+    return dict(records=records, launches=launches, params={
+        k: v.detach().cpu().clone()
+        for k, v in state.params.state_dict().items()})
+
+
+def dist_timed_steps(device, rank: int, world: int):
+    """The bf16 Fine step on this rank's part of the global batch of
+    DIST_B at the recipe's 1024x1024: DIST_WARMUP, then DIST_TIMED steps
+    synchronised after each, their launches checked against
+    expected_launches(cfg); the collectives a step calls, and the share of
+    one step (under the profiler) that the host spends in them."""
+    cfg = train_config("bfloat16")
+    state = build_train(cfg, device)
+    replicate_(state.params)
+    batch = shard_batch(train_batch(DIST_B, TH, TW, device), 1, rank, world)
+    step = make_train_step(cfg)
+    for _ in range(DIST_WARMUP):
+        step(state, batch)
+    torch.cuda.synchronize()
+    want = expected_launches(cfg)
+    reset_counts()
+    calls = COLLECTIVES["all_reduce"]
+    step_ms = []
+    for i in range(DIST_TIMED):
+        before = counts()
+        t0 = time.perf_counter()
+        _, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launched = {k: v - before[k] for k, v in counts().items()}
+        if launched != want or not np.isfinite(float(m["loss_total"])):
+            raise AssertionError(f"rank {rank} step {i}: launches "
+                                 f"{launched} (expected {want}), loss_total "
+                                 f"{float(m['loss_total'])}")
+    launches = counts()
+    calls = (COLLECTIVES["all_reduce"] - calls) / DIST_TIMED
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    coll = [e for e in prof.key_averages()
+            if "allreduce" in e.key.lower().replace("_", "")]
+    coll_ms = max((e.cpu_time_total for e in coll), default=0.0) / 1e3
+    return dict(step_ms=step_ms, launches=launches, calls=calls,
+                wall_ms=wall_ms, coll_ms=coll_ms,
+                coll_keys=sorted({e.key for e in coll}),
+                peak=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def dist_rank(rank: int, world: int, port: int, backend: str,
+              cards: list, out: str):
+    """One spawned rank of the distribution phase on card ``cards[rank]``:
+    joins the group, runs the f32 equality steps and the timed bf16
+    steps, and saves what each gave to ``out/rank<rank>.pt``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = initialize_distributed(f"127.0.0.1:{port}", world, rank,
+                                    device=DEVICE, local_rank=cards[rank],
+                                    backend=backend)
+    try:
+        result = {"equal": dist_equal_steps(device, rank, world)}
+        torch.cuda.empty_cache()
+        if backend == "gloo":
+            result["timed"] = dist_timed_steps(device, rank, world)
+        torch.save(result, Path(out) / f"rank{rank}.pt")
+    finally:
+        shutdown_distributed()
+
+
+def spawn_ranks(backend: str, cards: list, out: Path):
+    """DIST_RANKS ranks of dist_rank on ``cards``; their results."""
+    out.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    torch.multiprocessing.spawn(
+        dist_rank, args=(DIST_RANKS, free_port(), backend, cards, str(out)),
+        nprocs=DIST_RANKS, join=True)
+    log(f"[dist] {DIST_RANKS} {backend} ranks on cards {cards}: "
+        f"{time.perf_counter() - t0:.1f} s with set-up")
+    return [torch.load(out / f"rank{r}.pt", weights_only=False)
+            for r in range(DIST_RANKS)]
+
+
+def check_dist_equal(tag, ranks, ref):
+    """Bar (iii): every loss of every step (the gradient norm as phase 5
+    holds it), the first step's per-leaf gradient cosine distance and the
+    BN running statistics after it against the one-rank run; the ranks'
+    parameters after the steps equal bit for bit."""
+    worst_loss = 0.0
+    for i, want in enumerate(ref["records"]):
+        for r, got in enumerate(x["records"][i] for x in ranks):
+            rel = {k: abs(got["metrics"][k] - v) / max(abs(v), 1e-6)
+                   for k, v in want["metrics"].items()}
+            norm = rel.pop("grad_norm")
+            worst = max(rel, key=rel.get)
+            worst_loss = max(worst_loss, rel[worst])
+            log(f"[{tag}] step {i} rank {r}: loss_total "
+                f"{got['metrics']['loss_total']:.6g} (one rank "
+                f"{want['metrics']['loss_total']:.6g}), worst loss rel "
+                f"{rel[worst]:.2e} ({worst}), grad_norm rel {norm:.2e}")
+            if rel[worst] > DIST_REL or norm > 5e-2:
+                raise AssertionError(f"{tag} step {i} rank {r}: losses "
+                                     "disagree with one rank")
+    want = ref["records"][0]
+    for r, x in enumerate(ranks):
+        got = x["records"][0]
+        dists = {n: cosine_distance(got["grads"][n], g)
+                 for n, g in want["grads"].items()}
+        if set(dists) != set(got["grads"]):
+            raise AssertionError(f"{tag}: gradient names differ")
+        worst = max(dists, key=dists.get)
+        median = float(np.median(list(dists.values())))
+        stats = {k: float((got["stats"][k] - v).abs().max()
+                          / v.abs().max().clamp(min=1e-30))
+                 for k, v in want["stats"].items()}
+        worst_stat = max(stats, key=stats.get)
+        log(f"[{tag}] rank {r} step 0: gradient cosine distance over "
+            f"{len(dists)} tensors: median {median:.2e}, worst "
+            f"{dists[worst]:.2e} ({worst}); BN running statistics: worst "
+            f"max|diff|/max|one rank| {stats[worst_stat]:.2e} "
+            f"({worst_stat})")
+        if median > DIST_COS_MEDIAN or dists[worst] > DIST_COS_WORST:
+            raise AssertionError(f"{tag}: gradients disagree")
+        if stats[worst_stat] > DIST_REL:
+            raise AssertionError(f"{tag}: running statistics disagree")
+    n = 0
+    for k, v in ranks[0]["params"].items():
+        if not all(torch.equal(v, x["params"][k]) for x in ranks[1:]):
+            raise AssertionError(f"{tag}: ranks differ in {k}")
+        n += 1
+    log(f"[{tag}] after {DIST_STEPS} steps the {len(ranks)} ranks hold "
+        f"{n} equal tensors (parameters and BN statistics), bit for bit; "
+        f"worst loss rel over the steps {worst_loss:.2e}")
+
+
+def dist_cli(smi, root: Path, cards: int):
+    """train_net over NCCL with --num-devices = every visible card, on the
+    trainer tree under ``root``: 2 iterations (checkpoint at 2), then a
+    resume for 1. Returns the kernel launches of both runs (None where
+    the ranks are spawned processes)."""
+    out = root / "out_nccl"
+    port = free_port()
+    opts = ("SOLVER.IMS_PER_BATCH", str(DIST_CLI_PER_RANK * cards))
+    flags = ("--num-devices", str(cards), "--coordinator",
+             f"127.0.0.1:{port}")
+    backends = []
+    init = train_net.initialize_distributed
+
+    def recording(*args, **kwargs):
+        device = init(*args, **kwargs)
+        backends.append((torch.distributed.get_backend(),
+                         torch.distributed.get_world_size()))
+        return device
+
+    train_net.initialize_distributed = recording
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        train_net.main(trainer_argv(root, out, 2, *flags) + list(opts))
+    finally:
+        train_net.initialize_distributed = init
+    launches = counts() if cards == 1 else None
+    wall = time.perf_counter() - t0
+    ckpts = sorted(os.listdir(out / "checkpoints"))
+    lines = (out / "metrics.json").read_text().splitlines()
+    log(f"[dist-cli] train_net --num-devices {cards}: group {backends} "
+        f"(backend, ranks) in this process; {wall:.1f} s; checkpoint "
+        f"files {ckpts}; metrics.json {len(lines)} lines; launches "
+        f"{launches}")
+    # rank 0 alone writes: one checkpoint file, no temporary left, and
+    # rank 0's metric lines (the first iteration; on a card the peak
+    # memory)
+    if ckpts != ["2.pt"] or len(lines) != 1 + (DEVICE != "cpu"):
+        raise AssertionError("train_net over NCCL: unexpected files")
+    if cards == 1 and backends != [
+            ("nccl" if DEVICE != "cpu" else "gloo", 1)]:
+        raise AssertionError(f"train_net did not join NCCL: {backends}")
+
+    payload = torch.load(out / "checkpoints" / "2.pt", map_location="cpu",
+                         weights_only=True)
+    checked = []
+
+    class CheckedTrainer(Trainer):
+        def resume_or_load(self, resume=True):
+            super().resume_or_load(resume)
+            checked.append(same_state(self.state, payload))
+
+    train_net.Trainer = CheckedTrainer
+    reset_counts()
+    try:
+        train_net.main(trainer_argv(root, out, 3, "--resume", *flags)
+                       + list(opts))
+    finally:
+        train_net.Trainer = Trainer
+    resume_launches = counts() if cards == 1 else None
+    ckpts = CheckpointManager(str(out / "checkpoints")).steps()
+    log(f"[dist-cli] resume for 1: restored state equal to checkpoint 2 "
+        f"bit for bit ({checked} tensors; checked in this process with "
+        f"one rank), checkpoints {ckpts}, launches {resume_launches}")
+    if ckpts != [2, 3] or (cards == 1 and not checked):
+        raise AssertionError("train_net resume over NCCL failed")
+    if cards == 1:
+        log(f"[dist-cli] NCCL ran with one rank on the one card ({smi}); "
+            "the cross-card NCCL run and its equality wait for a machine "
+            "with 2 or more cards")
+    return launches, resume_launches
+
+
+def phase_distribution(smi, root: Path, world1):
+    """Data-parallel training on the card: (a) DIST_RANKS gloo ranks on
+    the one card against one rank in this process, f32, bar (iii), every
+    kernel call kept in each rank bit for bit; (b) the same ranks timed
+    in bf16 at 1024x1024; (c) train_net over NCCL on every visible card
+    (with 2 or more, (a) again over NCCL across 2 cards); (d) phase 6's
+    world-size-1 step called no collective and launched as the parent.
+    Returns the kernels' launches by path."""
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    torch.cuda.empty_cache()
+    ref = dist_equal_steps(torch.device(DEVICE), 0, 1)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="mgnet_dist_") as tmp:
+        ranks = spawn_ranks("gloo", [0] * DIST_RANKS, Path(tmp))
+        check_dist_equal("dist-gloo-one-card", [r["equal"] for r in ranks],
+                         ref)
+        timed = [r["timed"] for r in ranks]
+        for r, t in enumerate(timed):
+            log(f"[dist-timed] rank {r}: bf16 Fine step at global batch "
+                f"{DIST_B} of {TH}x{TW} ({DIST_B // DIST_RANKS} per rank), "
+                f"{DIST_RANKS} gloo ranks SHARING ONE CARD (not a scaling "
+                f"number): ms/step {[round(x, 1) for x in t['step_ms']]} "
+                f"(mean {np.mean(t['step_ms']):.1f}); {t['calls']:.0f} "
+                f"collectives/step; under the profiler {t['wall_ms']:.1f} "
+                f"ms, of which {t['coll_ms']:.1f} ms on the host in "
+                f"{t['coll_keys']} (share {t['coll_ms'] / t['wall_ms']:.3f})"
+                f"; launches in {DIST_TIMED} steps {t['launches']}; peak "
+                f"{t['peak']:.3f} GiB; {smi}")
+        if cards >= 2:
+            nccl = spawn_ranks("nccl", [0, 1], Path(tmp) / "nccl")
+            check_dist_equal("dist-nccl-two-cards",
+                             [r["equal"] for r in nccl], ref)
+    cli, cli_resume = dist_cli(smi, root, cards)
+    calls, per_step = world1
+    log(f"[dist-world1] phase 6's batch-{TB} step at world size 1: "
+        f"{calls} collectives in its steps; profiler launches "
+        f"{per_step:.0f} per step (parent {PARENT_LAUNCHES})")
+    if calls or round(per_step) != PARENT_LAUNCHES:
+        raise AssertionError("the world-size-1 step called a collective "
+                             "or changed its launches")
+    log(f"[dist] phase {time.perf_counter() - t0:.1f} s")
+    paths = {"dist-one-rank": ref["launches"]}
+    for r, x in enumerate(ranks):
+        paths[f"dist-gloo-rank{r}"] = x["equal"]["launches"]
+        paths[f"dist-timed-rank{r}"] = x["timed"]["launches"]
+    if cli is not None:
+        paths.update({"dist-cli-nccl": cli, "dist-cli-nccl-resume":
+                      cli_resume})
+    return paths
+
+
 def phase_cpu_vs_card_eval(root: Path):
     """The f32 evaluate_dataset on the card against the same call on the
     CPU, at narrow widths, on a tree of SMALL_VAL frames under ``root``:
@@ -2360,29 +2719,50 @@ def main() -> int:
     opts = ap.parse_args()
     if Path(mgnet_tpu_torch.__file__).resolve().parent.parent != ROOT:
         raise SystemExit(f"chip_smoke: mgnet_tpu_torch must come from {ROOT}")
+    seconds = {}
+    t_last = [time.perf_counter()]
+
+    def mark(phase: str):
+        """Seconds since the previous mark, kept under ``phase``."""
+        now = time.perf_counter()
+        seconds[phase] = round(now - t_last[0], 1)
+        t_last[0] = now
+
     name, count, smi = phase_device()
     phase_build()
     parent = (None if opts.parent_center_argmin is None
               else load_parent_center_argmin(opts.parent_center_argmin))
+    mark("device+build")
     rows = phase_kernels(smi, parent) + phase_train_kernels(smi)
+    mark("kernels")
     phase_cpu_vs_card()
     rows[0]["launches"] = phase_slice(smi, parent)
+    mark("frame")
     phase_cpu_vs_card_train()
     with tempfile.TemporaryDirectory(prefix="mgnet_eval_small_") as tmp:
         phase_cpu_vs_card_eval(Path(tmp))
+    mark("cpu-vs-card")
     reset_counts()
-    launches = phase_train(smi)
+    launches, world1_calls, world1_per_step = phase_train(smi)
     for row in rows[1:]:
         row["launches"] = launches[row["name"]]
     for row in rows:
         if not row["launches"]:
             raise AssertionError(f"{row['name']}: no launch on its path")
+    mark("train")
     train_paths, frame_paths = phase_configs(smi)
+    mark("configs")
     with tempfile.TemporaryDirectory(prefix="mgnet_trainer_") as tmp:
         trainer_paths = dict(zip(("trainer", "trainer-resume"),
                                  phase_trainer(smi, Path(tmp))))
+        mark("trainer")
         eval_paths = phase_eval(smi, Path(tmp))
+        mark("eval")
         serving_paths = phase_serving(smi, Path(tmp))
+        mark("serving")
+        dist_paths = phase_distribution(
+            smi, Path(tmp), (world1_calls, world1_per_step))
+        mark("distribution")
     rows[0]["launches_by_path"] = {
         "serving": rows[0]["launches"], **frame_paths,
         "trainer-eval": trainer_paths["trainer-resume"].pop("center_argmin"),
@@ -2390,7 +2770,9 @@ def main() -> int:
     for row in rows[1:]:
         row["launches_by_path"] = {"train": row["launches"], **{
             tag: n[row["name"]] for tag, n in
-            {**train_paths, **trainer_paths}.items()}}
+            {**train_paths, **trainer_paths, **dist_paths}.items()}}
+    log(f"[done] elapsed {time.perf_counter() - T_START:.1f} s; seconds by "
+        f"phase {seconds}")
     log(f"[done] elapsed {time.perf_counter() - T_START:.1f} s")
     print(smi)
     print(json.dumps({"kernels": rows}))

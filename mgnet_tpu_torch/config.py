@@ -11,13 +11,13 @@ its four TPU-only switches (``TPU_ONLY_KEYS``): the port always runs its
 kernels on the card, and its warp is the exact f32 gather. Those four
 raise as unknown, with a message that names them.
 
-Keys carried so that the shipped YAML files load, which no code of the
-port reads yet, with the slice of ROADMAP.md's Queue 1 that will read
-them: ``MESH.*`` (distribution), and ``TEST.AMP.ENABLED``, which no code
-of the JAX package reads either (the eval step's dtype is
-``MODEL.COMPUTE_DTYPE``). The trainer (``train/trainer.py``) reads
-``DATASETS.*``, ``DATALOADER.*``, ``INPUT.*``, ``MODEL.WEIGHTS``,
-``OUTPUT_DIR`` and ``TEST.*``.
+A key carried so that the shipped YAML files load, which no code of the
+port reads: ``TEST.AMP.ENABLED``, which no code of the JAX package reads
+either (the eval step's dtype is ``MODEL.COMPUTE_DTYPE``). The trainer
+(``train/trainer.py``) reads ``DATASETS.*``, ``DATALOADER.*``,
+``INPUT.*``, ``MODEL.WEIGHTS``, ``OUTPUT_DIR``, ``TEST.*`` and ``MESH.*``
+(``parallel.data_parallel_size``: ``DATA`` -1 or the number of ranks;
+``MODEL`` > 1, the JAX package's spatial axis, raises).
 
 The card's machine has no PyYAML, so the files are read by ``parse_yaml``,
 a reader of the subset the shipped configs use: nested block maps by

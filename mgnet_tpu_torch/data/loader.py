@@ -1,6 +1,6 @@
 """Batched data loading with threaded prefetch, and the hand-off to torch.
 
-A copy of ``mgnet_tpu/data/loader.py`` for one process: ``pad_to_divisible``
+A copy of ``mgnet_tpu/data/loader.py``: ``pad_to_divisible``
 (the ImageList padding to MODEL.SIZE_DIVISIBILITY), ``collate_batch``,
 ``TrainLoader`` (an infinite shuffled loader whose mapper work runs in a
 thread pool: PNG inflate, the C++ unfilter and resample release the
@@ -23,6 +23,8 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from mgnet_tpu_torch.parallel.mesh import local_positions
 
 __all__ = ["TrainLoader", "collate_batch", "pad_to_divisible", "test_loader",
            "to_device"]
@@ -114,8 +116,15 @@ class TrainLoader:
     with the same seed reproduces the batches, and every new loader starts
     at epoch 0. A mapper's exception is raised by the iterator.
 
-    One process only for now: ``process_count > 1`` raises (the
-    distribution slice adds the per-process slices of each global batch).
+    Several processes: ``batch_size`` is the GLOBAL batch; every process
+    draws the same global sample stream (the same seed) and maps only its
+    part of each global batch, ``batch_size / process_count`` samples: its
+    contiguous slice, or with ``micro_batches = k > 1`` its contiguous
+    share of each of the k global micro-batches, in order
+    (``parallel.local_positions``), so that the step's split of the local
+    batch into k gives every rank its share of the same global
+    micro-batch. Local batches must collate to the same spatial shape on
+    every process (fixed-size crops).
     """
 
     def __init__(
@@ -131,14 +140,17 @@ class TrainLoader:
         process_index: int = 0,
         process_count: int = 1,
         pin_memory: bool = False,
+        micro_batches: int = 1,
     ):
-        if process_count > 1 or process_index:
-            raise NotImplementedError(
-                "TrainLoader runs in one process; multi-process loading "
-                "comes with the port's distribution slice")
         self.dataset = list(dataset)
         self.mapper = mapper
         self.batch_size = batch_size
+        # this process's positions in each global batch (raises unless
+        # the batch divides over the processes and micro-batches)
+        self.positions = local_positions(batch_size, process_index,
+                                         max(1, process_count),
+                                         micro_batches)
+        self.local_batch = len(self.positions)
         self.seed = seed
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch
@@ -158,6 +170,13 @@ class TrainLoader:
                 yield epoch, int(j)
             epoch += 1
 
+    def _local_indices(self) -> Iterator[tuple]:
+        """This process's part of each global batch of the stream."""
+        it = self._sample_indices()
+        while True:
+            group = [next(it) for _ in range(self.batch_size)]
+            yield from (group[p] for p in self.positions)
+
     def _map_one(self, args) -> Dict:
         epoch, j = args
         rng = np.random.default_rng((self.seed, epoch, j))
@@ -175,17 +194,17 @@ class TrainLoader:
                 continue
 
     def _producer(self):
-        idx_iter = self._sample_indices()
+        idx_iter = self._local_indices()
         try:
             with ThreadPoolExecutor(self.num_workers) as pool:
                 pending = []
                 while not self._stop.is_set():
-                    while len(pending) < self.batch_size * 2:
+                    while len(pending) < self.local_batch * 2:
                         pending.append(pool.submit(self._map_one,
                                                    next(idx_iter)))
                     samples = [f.result()
-                               for f in pending[:self.batch_size]]
-                    pending = pending[self.batch_size:]
+                               for f in pending[:self.local_batch]]
+                    pending = pending[self.local_batch:]
                     batch = collate_batch(samples, self.divisibility)
                     if self.pin_memory:
                         batch = _pin(batch)

@@ -13,6 +13,12 @@ inverse depth with weight 1/2^i per scale (no extra /2).
 Everything runs in float32, on channel-planar [B, C, H, W] tensors inside;
 the arguments keep the JAX package's NHWC layout.
 
+Under data parallelism (``parallel.collectives``, world > 1) the masked
+sums and the mask sums are over the global batch, as in the JAX
+package's SPMD step: each scale's photometric and smoothness sum through
+the differentiable ``all_sum``, the mask sums through ``reduce_``. The
+per-sample terms (each sample's mean inverse depth) stay local.
+
 ``ssim`` is the plain SSIM loss map of ``mgnet_tpu/losses/photometric.py:50``
 (NHWC, 3x3 average pools over reflect padding); the loss above does not
 call it: its residual is the fused kernel's.
@@ -32,6 +38,7 @@ from mgnet_tpu_torch.geometry import (
     view_synthesis_planar,
 )
 from mgnet_tpu_torch.ops.ssim import fused_photometric_residual
+from mgnet_tpu_torch.parallel.collectives import all_sum, reduce_
 
 __all__ = ["multi_view_photometric_loss", "ssim"]
 
@@ -139,7 +146,7 @@ def _loss(inv_depths, poses, camera_matrix, image, context_images,
             if automask_loss:
                 candidates[i].append(unwarped)
 
-    mask_sum = torch.clamp(mask.sum(), min=1.0)
+    mask_sum = torch.clamp(reduce_(mask.sum()), min=1.0)
 
     def reduce_scale(cands: List[torch.Tensor]) -> torch.Tensor:
         stacked = torch.stack(cands, dim=0)
@@ -150,7 +157,7 @@ def _loss(inv_depths, poses, camera_matrix, image, context_images,
         else:
             raise ValueError(
                 f"Unknown photometric_reduce_op: {photometric_reduce_op}")
-        return (m * mask).sum() / mask_sum
+        return all_sum((m * mask).sum()) / mask_sum
 
     photometric_loss = sum(reduce_scale(candidates[i])
                            for i in range(n)) / n
@@ -166,15 +173,18 @@ def _loss(inv_depths, poses, camera_matrix, image, context_images,
     weights_y = torch.exp(-img_gy.mean(dim=1))
     mask_x = mask[:, :, :-1]
     mask_y = mask[:, :-1, :]
-    msum_x = torch.clamp(mask_x.sum(), min=1.0)
-    msum_y = torch.clamp(mask_y.sum(), min=1.0)
-    smoothness_loss = sum(
-        ((torch.abs((inv_norm[i][:, :, :-1] - inv_norm[i][:, :, 1:])
-                    * weights_x) * mask_x).sum() / msum_x
-         + (torch.abs((inv_norm[i][:, :-1, :] - inv_norm[i][:, 1:, :])
-                      * weights_y) * mask_y).sum() / msum_y) / 2 ** i
-        for i in range(n)
-    ) / n
+    msum_x = torch.clamp(reduce_(mask_x.sum()), min=1.0)
+    msum_y = torch.clamp(reduce_(mask_y.sum()), min=1.0)
+
+    def smooth_scale(d: torch.Tensor) -> torch.Tensor:
+        sx = (torch.abs((d[:, :, :-1] - d[:, :, 1:]) * weights_x)
+              * mask_x).sum()
+        sy = (torch.abs((d[:, :-1, :] - d[:, 1:, :]) * weights_y)
+              * mask_y).sum()
+        return all_sum(sx) / msum_x + all_sum(sy) / msum_y
+
+    smoothness_loss = sum(smooth_scale(inv_norm[i]) / 2 ** i
+                          for i in range(n)) / n
     return {
         "loss_photometric": photometric_loss * photometric_loss_weight,
         "loss_smoothness": smoothness_loss * smoothing_loss_weight,

@@ -9,11 +9,22 @@ Hard-example selection keeps the JAX package's 24-step bisection for the
 k-th largest pixel loss (``_kth_largest``), run without gradient, rather
 than a sort or ``torch.topk``: the threshold it finds is approximate by
 design, and parity with the JAX package needs the same approximation.
+
+Under data parallelism (``parallel.collectives``, world > 1) every
+reduction is over the global batch, as in the JAX package's SPMD step:
+the bisection's maximum and counts, k and n_min from the global pixel
+count, OHEM's count, sum and top-k mean, the CE valid count and the
+center / offset weight sums. Sums that carry a gradient go through the
+differentiable ``all_sum``; counts, maxima and weight sums through
+``reduce_``. Every rank's loss is the global loss.
 """
 
 from __future__ import annotations
 
 import torch
+
+from mgnet_tpu_torch.parallel.collectives import all_mean, all_sum, reduce_
+from mgnet_tpu_torch.parallel.multihost import process_count
 
 __all__ = [
     "cross_entropy_loss",
@@ -42,31 +53,33 @@ def cross_entropy_loss(logits, labels, weights=None, ignore_label: int = 255):
     ce, valid = _per_pixel_ce(logits, labels, ignore_label)
     if weights is not None:
         ce = ce * weights
-    denom = torch.clamp(valid.float().sum(), min=1.0)
-    return ce.sum() / denom
+    denom = torch.clamp(reduce_(valid.float().sum()), min=1.0)
+    return all_sum(ce.sum()) / denom
 
 
 @torch.no_grad()
 def _kth_largest(x: torch.Tensor, k: int, iters: int = 24) -> torch.Tensor:
-    """Approximate k-th largest value of flat non-negative ``x``: bisection
-    on the value axis, ``iters`` steps from [0, max + 1e-6]."""
+    """Approximate k-th largest value of flat non-negative ``x`` (all
+    ranks' values): bisection on the value axis, ``iters`` steps from
+    [0, max + 1e-6]."""
     lo = torch.zeros((), dtype=torch.float32, device=x.device)
-    hi = x.max() + 1e-6
+    hi = reduce_(x.max(), "max") + 1e-6
     for _ in range(iters):
         mid = 0.5 * (lo + hi)
-        ok = (x > mid).sum() >= k
+        ok = reduce_((x > mid).sum()) >= k
         lo = torch.where(ok, mid, lo)
         hi = torch.where(ok, hi, mid)
     return lo
 
 
 def topk_sum(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Sum of the k largest values of flat non-negative ``x``, without a
-    sort: sum(x > t) + (k - count(x > t)) * t at the bisection's t."""
+    """Sum of the k largest values of flat non-negative ``x`` (all ranks'
+    values), without a sort: sum(x > t) + (k - count(x > t)) * t at the
+    bisection's t."""
     t = _kth_largest(x, k)
     above = x > t
-    count = above.sum()
-    s = torch.where(above, x, torch.zeros_like(x)).sum()
+    count = reduce_(above.sum())
+    s = all_sum(torch.where(above, x, torch.zeros_like(x)).sum())
     return s + (k - count).float() * t
 
 
@@ -78,8 +91,8 @@ def deeplab_ce_loss(logits, labels, weights=None, ignore_label: int = 255,
         ce = ce * weights
     flat = ce.reshape(-1)
     if top_k_percent >= 1.0:
-        return flat.mean()
-    k = int(top_k_percent * flat.shape[0])
+        return all_mean(flat.mean())
+    k = int(top_k_percent * flat.shape[0] * process_count())
     return topk_sum(flat, k) / k
 
 
@@ -92,13 +105,14 @@ def ohem_ce_loss(logits, labels, weights=None, ignore_label: int = 255,
     if weights is not None:
         ce = ce * weights
     flat = ce.reshape(-1).float()
-    n = flat.shape[0]
+    n = flat.shape[0] * process_count()
     n_min = min(n_min, n - 1)
     thresh = -torch.log(torch.tensor(ohem_threshold, dtype=torch.float32,
                                      device=flat.device))
     above = flat > thresh
-    count_above = above.sum()
-    sum_above = torch.where(above, flat, torch.zeros_like(flat)).sum()
+    count_above = reduce_(above.sum())
+    sum_above = all_sum(torch.where(above, flat, torch.zeros_like(flat))
+                        .sum())
     mean_above = sum_above / torch.clamp(count_above, min=1).float()
     mean_topk = topk_sum(flat, n_min) / n_min
     return torch.where(count_above > n_min, mean_above, mean_topk)
@@ -109,8 +123,8 @@ def _weighted_sum_loss(err: torch.Tensor, weights: torch.Tensor,
     if weights.dim() == ndim - 1:
         weights = weights[..., None]
     weights = weights.float()
-    loss = (err * weights).sum()
-    wsum = weights.sum()
+    loss = all_sum((err * weights).sum())
+    wsum = reduce_(weights.sum())
     return torch.where(wsum > 0, loss / torch.clamp(wsum, min=1e-12),
                        torch.zeros_like(loss))
 

@@ -16,9 +16,19 @@ unbiased variance (x n / (n - 1)): the JAX package's ``BN_MOMENTUM =
 0.99`` in flax form, torch momentum 0.01. ``module.eval()`` normalizes
 with the running statistics.
 
+Under data parallelism (``parallel.collectives``, world > 1) the batch
+statistics are the global batch's, as the JAX step's
+(``mgnet_tpu/models/abn.py:117-140``): the one-pass path averages the
+stacked per-rank [E[x], E[x^2]] in one differentiable all-reduce; the
+two-pass path takes two, the global mean and then the global
+E[(x - mean)^2]; n counts every rank's values. Each rank applies the same
+update to its running statistics, so they stay equal without a
+broadcast.
+
 ``checkpoint_once`` is ``torch.utils.checkpoint`` for a module that holds
 ABN: the recompute in the backward normalizes with the same batch
-statistics but leaves the running ones alone, so that they update once a
+statistics (all-reducing again, on every rank at the same point of the
+backward) but leaves the running ones alone, so that they update once a
 forward, as under the JAX package's functional ``nn.remat``.
 """
 
@@ -28,6 +38,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from mgnet_tpu_torch.parallel.collectives import all_mean
+from mgnet_tpu_torch.parallel.multihost import process_count
 
 __all__ = ["ABN", "ConvABN", "BN_EPS", "BN_MOMENTUM", "checkpoint_once"]
 
@@ -54,16 +67,21 @@ class ABN(nn.Module):
 
     def _batch_stats(self, xf: torch.Tensor):
         dims = (0, 2, 3)
+        world = process_count()
         mean = xf.mean(dim=dims)
         if self.fast_variance:
-            var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean,
-                              min=0.0)
+            mean2 = (xf * xf).mean(dim=dims)
+            if world > 1:
+                mean, mean2 = all_mean(torch.stack([mean, mean2])).unbind(0)
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
         else:
-            var = torch.square(xf - mean[:, None, None]).mean(dim=dims)
+            mean = all_mean(mean)
+            var = all_mean(torch.square(xf - mean[:, None, None])
+                           .mean(dim=dims))
         if not self.update_stats:
             return mean, var
         with torch.no_grad():
-            n = xf.numel() // xf.shape[1]
+            n = xf.numel() // xf.shape[1] * world
             correction = n / (n - 1) if n > 1 else 1.0
             m = BN_MOMENTUM
             self.running_mean.mul_(m).add_((1 - m) * mean)

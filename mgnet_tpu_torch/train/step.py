@@ -21,6 +21,19 @@ scales the gradients and the metrics by 1/k, and steps the optimizer once.
 (JAX: ``jax.checkpoint``, ``mgnet_tpu/train/step.py:120-122``): the warp
 and SSIM forward kernels run again in the backward, in place of keeping
 the warped frames.
+
+Data parallelism (one rank per card, ``parallel``): each rank steps on its
+part of the global batch (``parallel.shard_batch``: its share of each
+global micro-batch) and the step computes what the JAX package's SPMD
+step computes on the whole. The convention: every rank's loss IS the
+global loss (the BN statistics and every loss reduction all-reduce inside
+the forward, differentiably, ``parallel.collectives``), and the parameter
+gradients are averaged over the ranks, once per step after the
+micro-batches (one flat all-reduce, ``average_gradients``) and before the
+optimizer's global-norm clip, so that the clip and ``grad_norm`` see the
+global gradient. The metrics are then the global losses on every rank,
+and the BN running statistics, updated alike on every rank, stay equal
+without a broadcast. At a world size of 1 no collective is called.
 """
 
 from __future__ import annotations
@@ -38,6 +51,7 @@ from mgnet_tpu_torch.losses import (
     offset_loss,
     ohem_ce_loss,
 )
+from mgnet_tpu_torch.parallel.collectives import average_gradients
 
 __all__ = ["normalize_images", "unit_image", "compute_losses",
            "apply_uncertainty", "make_eval_step", "make_train_step",
@@ -200,6 +214,7 @@ def make_train_step(cfg) -> Callable:
                 torch._foreach_mul_([p.grad for p in state.optimizer.params
                                      if p.grad is not None], inv)
             metrics = {k: v * inv for k, v in metrics.items()}
+        average_gradients(state.optimizer.params)
         metrics["grad_norm"] = state.optimizer.step()
         state.step += 1
         return state, metrics

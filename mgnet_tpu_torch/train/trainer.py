@@ -1,13 +1,21 @@
 """The training loop and the evaluation of a dataset.
 
 Port of ``mgnet_tpu/train/trainer.py``, on one card per process: the model
-and train state from the config, the mapper named by
-``INPUT.TRAIN_DATASET_MAPPER``, the threaded ``TrainLoader`` over
-``DATASETS.TRAIN[0]`` (pinned batches, copied to the card without
-blocking), ``make_train_step``, step checkpoints every
+and train state from the config (rank 0's broadcast to every rank), the
+mapper named by ``INPUT.TRAIN_DATASET_MAPPER``, the threaded
+``TrainLoader`` over ``DATASETS.TRAIN[0]`` (pinned batches, copied to the
+card without blocking), ``make_train_step``, step checkpoints every
 ``SOLVER.CHECKPOINT_PERIOD`` iterations and at the end, ``Trainer.test``
 every ``TEST.EVAL_PERIOD`` iterations (0: never), then the params-only
 ``model_final``.
+
+Data-parallel over the ranks of a process group (``parallel``;
+``tools/train_net.py --num-devices`` starts them): ``SOLVER.IMS_PER_BATCH``
+is the global batch and must divide over ranks x ``GRAD_ACCUM_STEPS``;
+each rank's loader maps only its part of each global batch, and the step
+computes the global batch's step (``train/step.py``). Checkpoints,
+``model_final`` and the metric log are written by rank 0 alone, each
+followed by a barrier; every rank resumes from the same checkpoint.
 
 As in the JAX trainer, every ``train()`` starts the loader at epoch 0: a
 resumed run continues the step count, the optimizer and the schedule, not
@@ -59,7 +67,13 @@ from mgnet_tpu_torch.inference.fused import fusion_kwargs, statics_from_meta
 from mgnet_tpu_torch.inference.tta import multi_scale_flip_inference
 from mgnet_tpu_torch.inference.visualizer import Visualizer
 from mgnet_tpu_torch.models import build_model, init_random_
-from mgnet_tpu_torch.parallel import process_count, process_index
+from mgnet_tpu_torch.parallel import (
+    data_parallel_size,
+    process_count,
+    process_index,
+    replicate_,
+    synchronize,
+)
 from mgnet_tpu_torch.postprocessing import (
     depth_postprocess,
     extract_instances,
@@ -86,8 +100,10 @@ __all__ = ["Trainer", "eval_pad_to", "evaluate_dataset",
 
 
 class Trainer:
-    """One card's training loop. ``device`` defaults to the card; the tests
-    pass ``"cpu"``."""
+    """The training loop of one rank (of one card with one process).
+    ``device`` defaults to the card; a rank of several passes its own
+    (``parallel.initialize_distributed`` returns it); the tests pass
+    ``"cpu"``."""
 
     def __init__(self, cfg, output_dir: Optional[str] = None,
                  device="cuda"):
@@ -98,13 +114,17 @@ class Trainer:
 
         batch = cfg.SOLVER.IMS_PER_BATCH
         accum = max(1, int(cfg.SOLVER.GRAD_ACCUM_STEPS))
-        if batch % accum:
-            raise ValueError(f"IMS_PER_BATCH={batch} must divide into "
-                             f"{accum} GRAD_ACCUM_STEPS micro-batches")
+        world = data_parallel_size(cfg)
+        if batch % (world * accum):
+            raise ValueError(f"IMS_PER_BATCH={batch} must divide over "
+                             f"{world} ranks x {accum} GRAD_ACCUM_STEPS "
+                             "micro-batches")
         # weights drawn on the CPU from the seed: the same on every device
+        # (and rank 0's on every rank, as replicate_to_mesh places them)
         model = build_model(cfg, device="cpu", for_training=True)
         init_random_(model, torch.Generator().manual_seed(cfg.SEED))
         self.state = create_train_state(cfg, model.to(self.device))
+        replicate_(self.state.params)
         self.train_step = make_train_step(cfg)
         self.ckpt = CheckpointManager(
             os.path.join(self.output_dir, "checkpoints"))
@@ -119,7 +139,8 @@ class Trainer:
             num_workers=cfg.DATALOADER.NUM_WORKERS,
             prefetch=cfg.DATALOADER.PREFETCH,
             divisibility=cfg.MODEL.SIZE_DIVISIBILITY,
-            pin_memory=self.device.type == "cuda",
+            process_index=process_index(), process_count=world,
+            pin_memory=self.device.type == "cuda", micro_batches=accum,
         )
         # the npz graft's {"matched", "skipped"}, once resume_or_load did one
         self.pretrained: Optional[Dict[str, int]] = None
@@ -206,7 +227,8 @@ class Trainer:
                 t1 = time.perf_counter()
                 if ((i + 1) % cfg.SOLVER.CHECKPOINT_PERIOD == 0
                         or i + 1 == max_iter):
-                    self.ckpt.save(i + 1, self.state)
+                    self.ckpt.save(i + 1, self.state)  # rank 0 only
+                    synchronize()
                 self.save_seconds.append(time.perf_counter() - t1)
                 eval_s = 0.0
                 if (cfg.TEST.EVAL_PERIOD > 0
@@ -223,7 +245,8 @@ class Trainer:
             if peak is not None:
                 self.logger.log(max_iter, {"peak_hbm_gb": peak})
             save_params(os.path.join(self.output_dir, "model_final"),
-                        self.state.params)
+                        self.state.params)  # rank 0 only
+            synchronize()
         finally:
             self.loader.close()
 

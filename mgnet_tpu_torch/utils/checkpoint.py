@@ -14,7 +14,9 @@ place. The ``max_to_keep`` newest are kept. ``save_params`` /
 ``model_final`` that training ends with: ``<dir>/params.pt``).
 
 Every file is written to a temporary name beside it and moved into place
-with ``os.replace``, so a reader never sees half a file. Saves are
+with ``os.replace``, so a reader never sees half a file. Under several
+processes only process 0 writes (``save``, ``save_params``); every
+process reads, and the caller puts a barrier between the two. Saves are
 synchronous, so orbax's ``wait`` and ``close`` have no counterpart.
 """
 
@@ -24,6 +26,8 @@ import os
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from mgnet_tpu_torch.parallel.multihost import is_main_process
 
 __all__ = ["CheckpointManager", "load_params", "save_params"]
 
@@ -57,6 +61,10 @@ class CheckpointManager:
                       if n.endswith(".pt") and n[:-3].isdigit())
 
     def save(self, step: int, state) -> None:
+        """Write step ``step`` (process 0 only) and drop the oldest beyond
+        ``max_to_keep``."""
+        if not is_main_process():
+            return
         _save({"params": state.params.state_dict(),
                "optimizer": state.optimizer.state_dict(),
                "step": int(state.step)}, self._path(step))
@@ -82,7 +90,10 @@ class CheckpointManager:
 
 def save_params(path: str, module: torch.nn.Module) -> None:
     """Write ``module``'s parameters and buffers (for a ``TrainParams``:
-    the model, its BN statistics and ``log_vars``) to ``path/params.pt``."""
+    the model, its BN statistics and ``log_vars``) to ``path/params.pt``
+    (process 0 only)."""
+    if not is_main_process():
+        return
     os.makedirs(path, exist_ok=True)
     _save(module.state_dict(), os.path.join(path, "params.pt"))
 

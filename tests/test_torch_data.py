@@ -269,8 +269,9 @@ def test_train_loader_raises_the_mappers_error_and_one_process_only():
     assert not loader._thread.is_alive()
     with pytest.raises(RuntimeError, match="closed"):
         next(iter(loader))
-    with pytest.raises(NotImplementedError, match="one process"):
-        tloader.TrainLoader([{}], broken, batch_size=2, process_count=2)
+    # several processes: the global batch must divide over them
+    with pytest.raises(ValueError, match="does not divide"):
+        tloader.TrainLoader([{}], broken, batch_size=3, process_count=2)
 
 
 def test_pad_to_divisible_and_collate_equal_jax():

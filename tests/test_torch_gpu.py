@@ -558,3 +558,88 @@ def test_predict_batch_filter_on_the_card(tta):
     assert np.array_equal(only["panoptic"], full["panoptic"])
     assert lazy["panoptic"].device.type == "cuda"
     assert np.array_equal(lazy["panoptic"].cpu().numpy(), full["panoptic"])
+
+
+# bar (iii): two ranks on the card against one, where cuDNN may pick
+# other algorithms at the ranks' batch than at the global one
+DIST_REL, DIST_COS_MEDIAN, DIST_COS_WORST = 1e-4, 1e-4, 2e-3
+
+
+@pytest.fixture(scope="module")
+def card_ranks(tmp_path_factory):
+    """Both training steps of tests/_torch_mp_train_worker.py (plain at
+    one sample per rank; GRAD_ACCUM_STEPS 2 + MODEL.REMAT at two) in two
+    gloo ranks sharing the card, and in one rank in this process, from the
+    same seeded state: ({case: [rank results]}, {case: one-rank result})."""
+    _need_card()
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    import _torch_mp_train_worker as w
+
+    from mgnet_tpu_torch.models import build_model, init_random_
+    from mgnet_tpu_torch.train import create_train_state
+
+    out = tmp_path_factory.mktemp("card_ranks")
+    cfg = w.step_config()
+    model = build_model(cfg, device="cpu", for_training=True)
+    init_random_(model, torch.Generator().manual_seed(0))
+    state_dict = create_train_state(cfg, model).params.state_dict()
+    torch.save(state_dict, out / "state.pt")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    ranks = [subprocess.Popen(
+        [sys.executable, str(ROOT / "tests" / "_torch_mp_train_worker.py"),
+         str(r), str(port), str(out / "state.pt"), str(out), "cuda"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(w.WORLD)]
+    logs = [p.communicate(timeout=900)[0] for p in ranks]
+    for p, log in zip(ranks, logs):
+        assert p.returncode == 0, log[-3000:]
+    got = [torch.load(out / f"rank{r}.pt", weights_only=False)
+           for r in range(w.WORLD)]
+    allow = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        ref = {k: w.step_case(state_dict, *v, 0, 1, "cuda")
+               for k, v in w.STEP_CASES.items()}
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = allow
+    return {k: [g[k] for g in got] for k in ref}, ref
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["step/plain", "step/accum_remat"])
+def test_two_gloo_ranks_on_one_card_equal_one_rank(card_ranks, case):
+    """f32 on the card: the losses, the gradients (per-leaf cosine) and
+    the BN running statistics (per tensor, against its largest magnitude)
+    of two gloo ranks at the global batch equal one rank's within bar
+    (iii); both ranks hold the same parameters bit for bit."""
+    got, ref = card_ranks[0][case], card_ranks[1][case]
+    want = ref["metrics"]
+    for g in got:
+        rel = {k: abs(g["metrics"][k] - v) / max(abs(v), 1e-6)
+               for k, v in want.items() if k != "grad_norm"}
+        assert max(rel.values()) < DIST_REL, rel
+    dists = {}
+    for n, b in ref["grads"].items():
+        a, b = got[0]["grads"][n].double().flatten(), b.double().flatten()
+        den = float(a.norm() * b.norm())
+        dists[n] = 0.0 if den == 0 else 1.0 - float(a @ b) / den
+    stats = {k: float((got[0]["stats"][k] - v).abs().max()
+                      / v.abs().max()) for k, v in ref["stats"].items()}
+    median = sorted(dists.values())[len(dists) // 2]
+    print(f"{case}: gradient cosine distance median {median:.2e}, worst "
+          f"{max(dists.values()):.2e}; running statistics worst "
+          f"{max(stats.values()):.2e}")
+    assert median < DIST_COS_MEDIAN and max(dists.values()) < DIST_COS_WORST
+    assert max(stats.values()) < DIST_REL, max(stats, key=stats.get)
+    for k, v in got[0]["params"].items():
+        assert torch.equal(v, got[1]["params"][k]), k
