@@ -139,7 +139,20 @@ Phases, each printing its findings:
      cards, (a) again over NCCL across 2 cards); (d) phase 6's world-size-1
      step called no collective and launched PARENT_LAUNCHES kernels a
      step;
-  12. a JSON line of kernel numbers (with each path's launches), the total
+  12. export: phase 4's frame (1024x2048, bf16, with a camera) through
+     export.export_fused_inference (torch.export) and save_exported
+     (AOTInductor), their seconds and the artifacts' bytes; the package
+     loaded in Python and held to the eager frame at export.BARS on
+     request 0's image with the runner's camera; under torch.profiler the
+     center_argmin kernel launched once a frame by the package, and the
+     package's and the eager frame's launches and busy time; both frames
+     timed in turns; the C++ runner (export/csrc/aoti_runner.cpp, built by
+     ops._build.build_runner) on the same package and image: its latency
+     line, its FNV-1a of the panoptic output equal to the Python
+     package's, one center_argmin launch a frame; then
+     tools.export_inference --verify on the trainer's model_final at
+     256x512 in float32;
+  13. a JSON line of kernel numbers (with each path's launches), the total
      elapsed seconds, nvidia-smi's line, and as the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -200,6 +213,14 @@ from mgnet_tpu_torch.data import (
     synthetic_train_batch,
     write_cityscapes_tree,
 )
+from mgnet_tpu_torch.export import (
+    BARS,
+    compare_outputs,
+    export_fused_inference,
+    fnv1a64,
+    load_exported,
+    save_exported,
+)
 from mgnet_tpu_torch.evaluation import (
     DepthEvaluator,
     InstanceAPEvaluator,
@@ -253,6 +274,7 @@ from mgnet_tpu_torch.postprocessing.panoptic import (
 from mgnet_tpu_torch.tools import (
     bench,
     demo,
+    export_inference,
     generate_pseudo_labels,
     train_net,
 )
@@ -282,8 +304,9 @@ SMALL_B, SMALL_H, SMALL_W = 4, 128, 256
 # the trainer phase: a tree of 8 Cityscapes-size frames, the Fine YAML as
 # it is (batch 12 of 1024x1024 crops) for 4 iterations, a resume for 2
 # more, 1 batch of the loader alone, and the step timed STEP_ITERS times
-# after a warmup step beside each of 0, 1, cores - 1 and NUM_WORKERS loader
-# threads (each 2 before the distribution phase came, cut to keep the run
+# beside each of 0 (after a warmup step), 1, cores - 1 and NUM_WORKERS
+# loader threads (each 2 before the distribution phase came, and each
+# after a warmup step before the export phase came, cut to keep the run
 # short); TRAINER_OPTS are extra overrides (none on the card)
 TREE_FRAMES, TREE_H, TREE_W = 8, 1024, 2048
 TRAINER_ITERS, TRAINER_RESUME, LOADER_BATCHES = 4, 2, 1
@@ -321,6 +344,19 @@ DIST_WARMUP, DIST_TIMED = 1, 3
 DIST_CLI_PER_RANK = 2
 DIST_REL, DIST_COS_MEDIAN, DIST_COS_WORST = 1e-4, 1e-4, 2e-3
 PARENT_LAUNCHES = 7236
+# the export phase: phase 4's frame (1024x2048, bf16, with a camera, the
+# ImageNet backbone and seeded heads) through torch.export and
+# AOTInductor; the package and the eager frame timed over EXPORT_WARMUP +
+# EXPORT_ITERS frames each, in turns; the C++ runner over RUNNER_ITERS
+# frames on the same image with its own camera (RUNNER_K, RUNNER_HEIGHT:
+# export/csrc/aoti_runner.cpp's, which are native/src/pjrt_runner.cpp's);
+# export_inference --verify on the trainer's model_final at
+# EXPORT_VERIFY_H x EXPORT_VERIFY_W in float32
+EXPORT_WARMUP, EXPORT_ITERS, RUNNER_ITERS = 10, 50, 50
+EXPORT_VERIFY_H, EXPORT_VERIFY_W = 256, 512
+RUNNER_K = ((2262.52, 0.0, 1096.98), (0.0, 2265.30, 513.137),
+            (0.0, 0.0, 1.0))
+RUNNER_HEIGHT = 1.22
 PANOPTIC_KEYS = ["PQ", "SQ", "RQ", "PQ_th", "SQ_th", "RQ_th", "PQ_st",
                  "SQ_st", "RQ_st"]
 DEPTH_KEYS = ["Abs Rel", "Sq Rel", "RMSE", "RMSE log", "δ < 1.25",
@@ -355,14 +391,14 @@ def sync():
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     """Mean device time of fn() over ``iters`` launches (CUDA events). The
-    launches queue behind a spin of the card (~8.5 ms at 1.98 GHz), so
-    that the host's time per call does not pace a kernel shorter than
-    it."""
+    launches queue behind a spin of the card (~17 ms at 1.98 GHz), so
+    that the host's time per call (through a custom op's dispatch, tens
+    of microseconds) does not pace a kernel shorter than it."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(2**24)
+    torch.cuda._sleep(2**25)
     start.record()
     for _ in range(iters):
         fn()
@@ -1749,8 +1785,10 @@ def phase_trainer(smi, root: Path):
     for workers in sorted({0, 1, cores - 1,
                            cfg.DATALOADER.NUM_WORKERS}):
         with loader_running(cfg, workers):
+            # the step is warm after the no-loader case: the loader cases
+            # time it without a warmup (cut to keep the run short)
             step_ms[workers] = steady_state_timer(
-                step, (resumed.state, batch), warmup=1,
+                step, (resumed.state, batch), warmup=int(workers == 0),
                 iters=STEP_ITERS) * 1e3
     del resumed, resume_steps, batch
     if DEVICE != "cpu":
@@ -2333,6 +2371,196 @@ def phase_serving(smi, root: Path):
     return launches
 
 
+def device_profile(fn, inputs, n: int = 5, top: int = 8):
+    """(wall ms/frame, kernels' busy ms/frame, launches/frame,
+    center_argmin kernel launches/frame) of ``fn(*inputs)`` over ``n``
+    frames under torch.profiler; logs the ``top`` kernels by device
+    time."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn(*inputs)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / n * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = [(e.self_device_time_total / 1e3 / n, e.count / n, e.key)
+            for e in prof.key_averages() if e.device_type == cuda]
+    for dev_ms, count, key in sorted(rows, reverse=True)[:top]:
+        log(f"[export]   {dev_ms:8.3f} ms/frame  x{count:5.1f}  {key[:90]}")
+    return (wall_ms, sum(r[0] for r in rows), sum(r[1] for r in rows),
+            sum(r[1] for r in rows if "center_argmin_kernel" in r[2]))
+
+
+def frames_ms(fn, inputs, warmup: int, n: int) -> float:
+    """Host-clock ms/frame of ``fn(*inputs)`` over ``n`` frames after
+    ``warmup``, synchronised at the end."""
+    for _ in range(warmup):
+        fn(*inputs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn(*inputs)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def run_runner(smi, pkg: Path, image: torch.Tensor, want_fnv: int):
+    """Build the C++ runner, run it on the package with ``image`` (and its
+    own camera), check its checksum of the panoptic output against
+    ``want_fnv`` and its launches; returns its center_argmin launches."""
+    exe, build_s = _build.build_runner()
+    raw = pkg.parent / "image.raw"
+    image.cpu().numpy().tofile(raw)
+    h, w = image.shape[1:3]
+    res = subprocess.run(
+        [str(exe), str(pkg), str(raw), str(RUNNER_ITERS), str(h), str(w)],
+        capture_output=True, text=True, timeout=900)
+    log(f"[export] C++ runner {exe.relative_to(ROOT)} (built in "
+        f"{build_s:.1f} s): rc {res.returncode}")
+    for line in res.stdout.splitlines():
+        log(f"[export]   {line}")
+    if res.returncode != 0:
+        raise AssertionError(f"the C++ runner failed:\n{res.stderr[-4000:]}")
+    fnv = int(res.stdout.split("fnv1a=")[1].split()[0], 16)
+    launches = int(res.stdout.split("center_argmin launches: ")[1].split()[0])
+    latency = next(ln for ln in res.stdout.splitlines()
+                   if ln.startswith("latency:"))
+    log(f"[export] runner {latency}; fnv1a {fnv:016x}, the Python "
+        f"package's {want_fnv:016x}; {smi}")
+    if fnv != want_fnv:
+        raise AssertionError("the C++ runner's panoptic output differs from "
+                             "the Python-loaded package's")
+    if launches != 10 + RUNNER_ITERS + 1:
+        raise AssertionError(f"runner: {launches} center_argmin launches")
+    return launches
+
+
+def export_verify(smi, out: Path, model_final: str) -> int:
+    """tools.export_inference --verify on the trainer's model_final at a
+    reduced size, in float32 (TF32 off, as phase 1 set it), where the
+    package is held to the live frame at float32's bars on every value
+    (bfloat16's bar is the found one, and phase 12's frame holds it);
+    returns center_argmin's launches in it."""
+    center_argmin.launches = 0
+    t0 = time.perf_counter()
+    with tee_stream("stdout") as printed:
+        export_inference.main([
+            "--config-file", str(CONFIG_DIR / "MGNet-Cityscapes-Fine.yaml"),
+            "--weights", model_final, "--output", str(out / "final.pt2"),
+            "--height", str(EXPORT_VERIFY_H), "--width",
+            str(EXPORT_VERIFY_W), "--verify", "--device", DEVICE,
+            *SERVE_OPTS, "MODEL.COMPUTE_DTYPE", "float32"])
+    launches = center_argmin.launches
+    parity = [ln for ln in printed.getvalue().splitlines()
+              if ln.startswith("PARITY OK")]
+    log(f"[export] tools.export_inference --verify on model_final (f32) at "
+        f"{EXPORT_VERIFY_H}x{EXPORT_VERIFY_W}: {time.perf_counter() - t0:.1f}"
+        f" s with set-up; center_argmin launches {launches}; {smi}")
+    if len(parity) != 1 or launches != 2:
+        raise AssertionError(f"export_inference --verify: {parity}, "
+                             f"{launches} launches (one in the package, one "
+                             f"in the live frame)")
+    return launches
+
+
+def phase_export(smi, root: Path):
+    """The serving frame through torch.export and AOTInductor: export and
+    compile seconds, the artifacts' bytes; the package held to the eager
+    frame at export.BARS; the center_argmin kernel launched once a frame
+    by the package under torch.profiler; package and eager frame times,
+    launches and busy time; the C++ runner's latency and checksum; then
+    export_inference --verify on the trainer's model_final. Returns
+    center_argmin's launches by path."""
+    t_phase = time.perf_counter()
+    out = root / "export"
+    cfg = slice_config("bfloat16")
+    frame, statics, model = build_slice(cfg, DEVICE)
+    image = request(0, H, W, DEVICE)[0].float()
+    inputs = (image, torch.tensor([RUNNER_K], device=DEVICE),
+              torch.tensor([RUNNER_HEIGHT], device=DEVICE))
+    # random heads rarely predict road: the most common stuff class stands
+    # in as the DGC ground, so that depth and points carry a real scale
+    pan = frame(*inputs)["panoptic"]
+    stuff = pan[(pan >= 0) & (pan % statics.label_divisor == 0)]
+    road = int(torch.bincount(stuff // statics.label_divisor).argmax()) \
+        * statics.label_divisor
+    frame = build_fused_inference(model, statics._replace(road_class_id=road),
+                                  cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD,
+                                  device=DEVICE)
+    t0 = time.perf_counter()
+    exported, blob = export_fused_inference(frame, (1, H, W, 3))
+    export_s = time.perf_counter() - t0
+    pkg, compile_s = save_exported(out / "frame.pt2", exported, blob)
+    t0 = time.perf_counter()
+    package = load_exported(out / "frame.pt2")
+    log(f"[export] torch.export of the 1x{H}x{W} bf16 frame with a camera: "
+        f"{export_s:.1f} s, ExportedProgram {len(blob)} bytes; AOTInductor "
+        f"{compile_s:.1f} s, package {pkg.stat().st_size} bytes; load "
+        f"{time.perf_counter() - t0:.1f} s; {smi}")
+
+    center_argmin.launches = 0
+    got = package(*inputs)
+    sync()
+    first = center_argmin.launches
+    want = frame(*inputs)
+    bars = BARS[torch.bfloat16]
+    found = compare_outputs(got, want, frame.statics, *bars)
+    log(f"[export] package against the eager frame (bf16, DGC ground "
+        f"{road}): labels equal on {found['agree']} of the pixels (bar "
+        f"{bars[0]}); where the classes agree, within {bars[1]} abs + "
+        f"{bars[2]} rel: {found['within']} of the values (bar {bars[3]}), "
+        f"max |diff| {found['max_abs']}; center_argmin launches in the first "
+        f"frame {first}")
+    for key in sorted(set(want) - {"sem_seg", "panoptic"}):
+        g, w = got[key].float().flatten(), want[key].float().flatten()
+        ok = ~torch.isnan(w)
+        rel = ((g[ok] - w[ok]).abs() / w[ok].abs().clamp(min=1e-6)).cpu()
+        q = torch.quantile(rel[torch.randperm(rel.numel())[:1 << 20]],
+                           torch.tensor([0.5, 0.9, 0.99, 0.999]))
+        log(f"[export]   {key}: |diff| / |eager| at the 50/90/99/99.9th "
+            f"percentiles {[f'{v:.2e}' for v in q.tolist()]}")
+    if first != 1:
+        raise AssertionError(f"package: {first} center_argmin launches")
+
+    prof = {name: device_profile(fn, inputs)
+            for name, fn in (("package", package), ("eager", frame))}
+    for name, (wall, busy, n, ca) in prof.items():
+        log(f"[export] profiler, {name}: {n:.0f} launches/frame, kernels "
+            f"busy {busy:.3f} of {wall:.3f} ms/frame wall, center_argmin "
+            f"kernel launches/frame {ca:.1f}")
+    if prof["package"][3] != 1.0:
+        raise AssertionError(f"the package launched the center_argmin "
+                             f"kernel {prof['package'][3]} times a frame")
+    times = {"package": [], "eager": []}
+    center_argmin.launches = 0
+    for name in ("eager", "package", "package", "eager"):
+        fn = package if name == "package" else frame
+        times[name].append(frames_ms(fn, inputs, EXPORT_WARMUP,
+                                     EXPORT_ITERS))
+    timed = center_argmin.launches
+    log(f"[export] steady frame (1x{H}x{W}, bf16, image on the card, "
+        f"{EXPORT_ITERS} after {EXPORT_WARMUP} warmup, eager, package, "
+        f"package, eager): package {times['package']} ms/frame, eager "
+        f"{times['eager']}; center_argmin launches {timed} in "
+        f"{4 * (EXPORT_WARMUP + EXPORT_ITERS)} frames; {smi}")
+    if timed != 4 * (EXPORT_WARMUP + EXPORT_ITERS):
+        raise AssertionError(f"{timed} center_argmin launches")
+
+    launches = {"export": first, "export-profiled": int(prof["package"][3]
+                                                        * 5)}
+    launches["runner"] = run_runner(smi, pkg, image,
+                                    fnv1a64(got["panoptic"]))
+    del package, got, want, frame, model
+    torch.cuda.empty_cache()
+    launches["export-verify"] = export_verify(
+        smi, out, str(root / "out" / "model_final"))
+    log(f"[export] phase {time.perf_counter() - t_phase:.1f} s; "
+        f"center_argmin launches by path {launches}")
+    return launches
+
+
 def free_port() -> int:
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
@@ -2763,10 +2991,12 @@ def main() -> int:
         dist_paths = phase_distribution(
             smi, Path(tmp), (world1_calls, world1_per_step))
         mark("distribution")
+        export_paths = phase_export(smi, Path(tmp))
+        mark("export")
     rows[0]["launches_by_path"] = {
         "serving": rows[0]["launches"], **frame_paths,
         "trainer-eval": trainer_paths["trainer-resume"].pop("center_argmin"),
-        **eval_paths, **serving_paths}
+        **eval_paths, **serving_paths, **export_paths}
     for row in rows[1:]:
         row["launches_by_path"] = {"train": row["launches"], **{
             tag: n[row["name"]] for tag, n in

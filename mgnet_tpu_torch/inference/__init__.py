@@ -2,6 +2,7 @@
 multi-scale + flip TTA and the ``Predictor`` built on them."""
 
 from mgnet_tpu_torch.inference.fused import (
+    FusedFrame,
     PostprocessStatics,
     build_fused_inference,
     fusion_kwargs,
@@ -11,6 +12,7 @@ from mgnet_tpu_torch.inference.predictor import Predictor
 from mgnet_tpu_torch.inference.tta import multi_scale_flip_inference
 
 __all__ = [
+    "FusedFrame",
     "PostprocessStatics",
     "build_fused_inference",
     "fusion_kwargs",

@@ -29,6 +29,7 @@ from __future__ import annotations
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch import nn
 
 from mgnet_tpu_torch.geometry.camera import Camera
 from mgnet_tpu_torch.geometry.depth import inv2depth
@@ -40,8 +41,8 @@ from mgnet_tpu_torch.postprocessing.depth import dgc_scale_factor
 from mgnet_tpu_torch.postprocessing.panoptic import panoptic_fusion
 from mgnet_tpu_torch.train.step import normalize_images
 
-__all__ = ["PostprocessStatics", "build_fused_inference", "fusion_kwargs",
-           "statics_from_meta"]
+__all__ = ["FusedFrame", "PostprocessStatics", "build_fused_inference",
+           "fusion_kwargs", "statics_from_meta"]
 
 
 class PostprocessStatics(NamedTuple):
@@ -95,18 +96,104 @@ def fusion_kwargs(s: PostprocessStatics) -> dict:
                 nms_kernel=s.nms_kernel, max_instances=s.max_instances)
 
 
+class FusedFrame(nn.Module):
+    """The fused frame as a module: ``forward`` holds the whole frame on
+    tensors already on the frame's device, with no branch on a tensor's
+    value (the loop over ``depth_filter_ids`` is static), so that
+    ``torch.export`` traces it (``mgnet_tpu_torch.export``); calling the
+    frame accepts numpy arrays too, moves them to the device and runs
+    under ``torch.inference_mode``. See ``build_fused_inference``."""
+
+    def __init__(self, model, statics: PostprocessStatics, pixel_mean,
+                 pixel_std, with_panoptic: bool, with_depth: bool,
+                 return_point_cloud: bool, device):
+        super().__init__()
+        self.model = model
+        self.statics = statics
+        self.pixel_mean = tuple(pixel_mean)
+        self.pixel_std = tuple(pixel_std)
+        self.with_panoptic = with_panoptic
+        self.with_depth = with_depth
+        self.return_point_cloud = return_point_cloud
+        self.device = torch.device(device)
+
+    def __call__(self, image, camera_matrix=None,
+                 camera_height=None) -> Dict[str, torch.Tensor]:
+        with torch.inference_mode():
+            args = [None if a is None else torch.as_tensor(a,
+                                                           device=self.device)
+                    for a in (image, camera_matrix, camera_height)]
+            return super().__call__(*args)
+
+    def forward(self, image: torch.Tensor,
+                camera_matrix: Optional[torch.Tensor] = None,
+                camera_height: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
+        s = self.statics
+        model = self.model
+        out = model(normalize_images(image, self.pixel_mean, self.pixel_std))
+        stride = model.common_stride
+        h8, w8 = out["sem_seg" if self.with_panoptic
+                     else "inv_depth"].shape[1:3]
+        out_hw = (h8 * stride, w8 * stride)
+        result: Dict[str, torch.Tensor] = {}
+
+        if self.with_panoptic:
+            sem_cf = interpolate_bilinear_cf(
+                out["sem_seg"].permute(0, 3, 1, 2).float(), out_hw)
+            sem = torch.argmax(sem_cf, dim=1).int()
+            center = interpolate_bilinear(
+                out["center"].float(), out_hw)[..., 0]
+            offset = interpolate_bilinear(
+                out["offset"].float(), out_hw) * float(stride)
+            panoptic = panoptic_fusion(sem, center, offset,
+                                       **fusion_kwargs(s))
+            result.update(sem_seg=sem, panoptic=panoptic, center=center,
+                          offset=offset)
+
+        if self.with_depth:
+            # upsample inverse depth, THEN invert (reference order)
+            depth = inv2depth(
+                interpolate_bilinear(out["inv_depth"], out_hw)).float()
+            panoptic = result.get("panoptic")
+            points = None
+            if s.use_dgc and camera_matrix is not None:
+                cam = Camera(camera_matrix.float())
+                points = cam.reconstruct(depth, frame="c")
+                ground = (panoptic == s.road_class_id) \
+                    if panoptic is not None and s.road_class_id != -1 \
+                    else None
+                scale = dgc_scale_factor(points, camera_height,
+                                         ground).reshape(-1, 1, 1, 1)
+                depth = depth * scale
+                points = points * scale
+            depth = depth[..., 0]
+            if panoptic is not None:
+                for cid in s.depth_filter_ids:
+                    m = panoptic == cid
+                    depth = torch.where(m, 0.0, depth)
+                    if points is not None:
+                        points = torch.where(m[..., None], float("nan"),
+                                             points)
+            result["depth"] = depth
+            if points is not None and self.return_point_cloud:
+                result["points"] = points
+        return result
+
+
 def build_fused_inference(model, statics: PostprocessStatics,
                           pixel_mean, pixel_std,
                           with_panoptic: Optional[bool] = None,
                           with_depth: Optional[bool] = None,
-                          return_point_cloud: bool = True, device="cuda"):
+                          return_point_cloud: bool = True,
+                          device="cuda") -> FusedFrame:
     """Build the fused frame for ``model`` (an eval-mode MGNet on
     ``device``). ``with_panoptic`` and ``with_depth`` default to the
     model's own branches; a frame may leave out a branch the model has,
     and asking for one it lacks raises ``ValueError``.
 
-    Returns fn(image [B,H,W,3] raw RGB, camera_matrix [B,3,3] or None,
-               camera_height [B] or None) -> dict with
+    Returns a ``FusedFrame``: frame(image [B,H,W,3] raw RGB,
+    camera_matrix [B,3,3] or None, camera_height [B] or None) -> dict with
         'sem_seg'   [B,H,W]   int32 argmax classes        (with_panoptic)
         'panoptic'  [B,H,W]   int32 class*divisor + inst  (with_panoptic)
         'center'    [B,H,W]   f32 heatmap                 (with_panoptic)
@@ -117,8 +204,6 @@ def build_fused_inference(model, statics: PostprocessStatics,
                     use_dgc, a camera matrix and return_point_cloud)
     Inputs may be numpy arrays or tensors; they are moved to ``device``.
     """
-    s = statics
-    device = torch.device(device)
     if with_panoptic is None:
         with_panoptic = model.with_panoptic
     if with_depth is None:
@@ -132,59 +217,5 @@ def build_fused_inference(model, statics: PostprocessStatics,
             f"with_depth={model.with_depth}")
     if not (with_panoptic or with_depth):
         raise ValueError("the frame needs panoptic or depth")
-
-    @torch.inference_mode()
-    def fused(image, camera_matrix=None,
-              camera_height=None) -> Dict[str, torch.Tensor]:
-        image = torch.as_tensor(image, device=device)
-        out = model(normalize_images(image, pixel_mean, pixel_std))
-        stride = model.common_stride
-        h8, w8 = out["sem_seg" if with_panoptic else "inv_depth"].shape[1:3]
-        out_hw = (h8 * stride, w8 * stride)
-        result: Dict[str, torch.Tensor] = {}
-
-        if with_panoptic:
-            sem_cf = interpolate_bilinear_cf(
-                out["sem_seg"].permute(0, 3, 1, 2).float(), out_hw)
-            sem = torch.argmax(sem_cf, dim=1).int()
-            center = interpolate_bilinear(
-                out["center"].float(), out_hw)[..., 0]
-            offset = interpolate_bilinear(
-                out["offset"].float(), out_hw) * float(stride)
-            panoptic = panoptic_fusion(sem, center, offset,
-                                       **fusion_kwargs(s))
-            result.update(sem_seg=sem, panoptic=panoptic, center=center,
-                          offset=offset)
-
-        if with_depth:
-            # upsample inverse depth, THEN invert (reference order)
-            depth = inv2depth(
-                interpolate_bilinear(out["inv_depth"], out_hw)).float()
-            panoptic = result.get("panoptic")
-            points = None
-            if s.use_dgc and camera_matrix is not None:
-                cam = Camera(torch.as_tensor(camera_matrix,
-                                             device=device).float())
-                points = cam.reconstruct(depth, frame="c")
-                ground = (panoptic == s.road_class_id) \
-                    if panoptic is not None and s.road_class_id != -1 \
-                    else None
-                height = torch.as_tensor(camera_height, device=device)
-                scale = dgc_scale_factor(points, height,
-                                         ground).reshape(-1, 1, 1, 1)
-                depth = depth * scale
-                points = points * scale
-            depth = depth[..., 0]
-            if panoptic is not None:
-                for cid in s.depth_filter_ids:
-                    m = panoptic == cid
-                    depth = torch.where(m, 0.0, depth)
-                    if points is not None:
-                        points = torch.where(m[..., None], float("nan"),
-                                             points)
-            result["depth"] = depth
-            if points is not None and return_point_cloud:
-                result["points"] = points
-        return result
-
-    return fused
+    return FusedFrame(model, statics, pixel_mean, pixel_std, with_panoptic,
+                      with_depth, return_point_cloud, device)

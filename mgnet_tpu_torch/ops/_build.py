@@ -20,7 +20,12 @@ PNG unfiltering and Pillow-exact resampling) with ``g++`` alone, no
 ``-ffp-contract=off`` keeps its double coefficient arithmetic rounding as
 Pillow's and the numpy versions' does.
 
-Both builds write to a name unique to the process and thread, then
+``build_runner`` compiles the C++ runner of exported frames
+(``export/csrc/*.cpp``, which include PyTorch's headers) with ``g++`` and
+links it with the center_argmin object that ``build`` keeps, into the same
+directory.
+
+The builds write to a name unique to the process and thread, then
 ``os.replace`` it onto the final name: processes or threads that build at
 once each produce a whole library, and the last rename wins.
 
@@ -39,7 +44,7 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["build", "build_host", "load_library"]
+__all__ = ["build", "build_host", "build_runner", "load_library"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "ops" / "csrc"
@@ -50,6 +55,8 @@ NVCC_FLAGS = (
 )
 HOST_CSRC_DIR = _PKG / "data" / "csrc"
 GXX_FLAGS = ("-O3", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC")
+RUNNER_CSRC_DIR = _PKG / "export" / "csrc"
+RUNNER_GXX_FLAGS = ("-O2", "-std=c++20")
 
 
 def _nvcc() -> str:
@@ -92,6 +99,12 @@ def _private(path: Path) -> Path:
     return path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
 
 
+def _private_object(path: Path) -> Path:
+    """``_private`` for an object file: the ``.o`` suffix kept, which nvcc
+    needs to take it as one."""
+    return _private(path).with_suffix(".o")
+
+
 def _run(cmds: list[list[str]]) -> None:
     """Run the commands as parallel processes; raise on the first failure."""
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -109,7 +122,8 @@ def _run(cmds: list[list[str]]) -> None:
 
 
 def build() -> tuple[Path, float]:
-    """Compile all kernel sources if needed.
+    """Compile all kernel sources if needed, keeping each source's object
+    (``<stem>_<tag>.o``) beside the library for ``build_runner``.
 
     Returns (library path, seconds spent compiling; 0.0 if it was built
     already).
@@ -117,12 +131,12 @@ def build() -> tuple[Path, float]:
     sources = _sources()
     tag = _tag(NVCC_FLAGS, sources)
     lib = BUILD_DIR / f"libmgnet_kernels_{tag}.so"
-    if lib.is_file():
+    finals = [BUILD_DIR / f"{src.stem}_{tag}.o" for src in sources]
+    if lib.is_file() and all(obj.is_file() for obj in finals):
         return lib, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    objs = [BUILD_DIR / f"{src.stem}_{tag}.{os.getpid()}.o"
-            for src in sources]
+    objs = [_private_object(obj) for obj in finals]
     tmp = _private(lib)
     t0 = time.perf_counter()
     try:
@@ -130,6 +144,8 @@ def build() -> tuple[Path, float]:
               for src, obj in zip(sources, objs)])
         _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
                *map(str, objs)]])
+        for obj, final in zip(objs, finals):
+            os.replace(obj, final)
     finally:
         for obj in objs:
             obj.unlink(missing_ok=True)
@@ -155,6 +171,60 @@ def build_host() -> tuple[Path, float]:
     finally:
         tmp.unlink(missing_ok=True)
     return lib, time.perf_counter() - t0
+
+
+def _torch_flags() -> tuple[list[str], Path]:
+    """(g++ flags for code that includes PyTorch's C++ headers, the
+    directory of PyTorch's libraries)."""
+    import torch
+    from torch.utils import cpp_extension
+
+    abi = int(torch._C._GLIBCXX_USE_CXX11_ABI)
+    flags = [*RUNNER_GXX_FLAGS, f"-D_GLIBCXX_USE_CXX11_ABI={abi}",
+             *(f"-I{p}" for p in cpp_extension.include_paths())]
+    return flags, Path(torch.__file__).resolve().parent / "lib"
+
+
+def build_runner() -> tuple[Path, float]:
+    """Compile the C++ runner of exported frames if needed:
+    ``export/csrc/*.cpp`` (the runner, and ``mgnet::center_argmin``'s
+    registration) with ``g++`` against PyTorch's headers, one process per
+    source, all started together, then one link with the center_argmin
+    object of the kernels' own nvcc build (``build``), CUDA's static
+    runtime, and PyTorch's libraries (kept whether or not a symbol is
+    referenced, so that the CUDA backend registers; found at run time
+    through an rpath).
+
+    Returns (executable path, seconds spent compiling; 0.0 if it was
+    built already). A failed build raises."""
+    lib, kernel_seconds = build()
+    kernel_obj = BUILD_DIR / f"center_argmin_{_tag(NVCC_FLAGS, _sources())}.o"
+    import torch
+
+    flags, torch_lib = _torch_flags()
+    sources = sorted(RUNNER_CSRC_DIR.glob("*.cpp"))
+    tag = _tag([*flags, torch.__version__, lib.name], sources)
+    exe = BUILD_DIR / f"mgnet_aoti_runner_{tag}"
+    if exe.is_file():
+        return exe, kernel_seconds
+    cuda_lib = Path(_nvcc()).resolve().parent.parent / "lib64"
+    objs = [_private_object(BUILD_DIR / f"{src.stem}_{tag}.o")
+            for src in sources]
+    tmp = _private(exe)
+    t0 = time.perf_counter()
+    try:
+        _run([[_gxx(), *flags, "-c", "-o", str(obj), str(src)]
+              for src, obj in zip(sources, objs)])
+        _run([[_gxx(), "-o", str(tmp), *map(str, objs), str(kernel_obj),
+               f"-L{cuda_lib}", "-lcudart_static", "-ldl", "-lrt",
+               "-lpthread", f"-L{torch_lib}", "-Wl,--no-as-needed",
+               "-ltorch", "-ltorch_cuda", "-ltorch_cpu", "-lc10_cuda",
+               "-lc10", "-Wl,--as-needed", f"-Wl,-rpath,{torch_lib}"]])
+        os.replace(tmp, exe)
+    finally:
+        for obj in (*objs, tmp):
+            obj.unlink(missing_ok=True)
+    return exe, kernel_seconds + time.perf_counter() - t0
 
 
 @functools.cache

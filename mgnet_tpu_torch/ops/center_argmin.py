@@ -8,7 +8,11 @@ bound, design and the proof that its pruning is exact).
 ``center_argmin_reference`` is the plain PyTorch version of the same
 function: the wrapper uses it for CPU tensors, and tests and
 ``chip_smoke.py`` hold the kernel against it. A CUDA tensor always goes to
-the kernel; anything the kernel does not take raises.
+the kernel; anything the kernel does not take raises. The wrapper reaches
+both through the custom op ``mgnet::center_argmin`` (``center_argmin_op``:
+CPU kernel the plain version, CUDA kernel the launch, a fake for
+``torch.export``), so that the exported frame keeps the kernel as one
+opaque call.
 
 Both compute, for pixel (py, px) and centers k,
 
@@ -31,8 +35,9 @@ import torch
 
 from mgnet_tpu_torch.ops._build import load_library
 
-__all__ = ["center_argmin", "center_argmin_reference", "center_inputs",
-           "center_candidates_reference", "MAX_CENTERS", "TILE_H", "TILE_W"]
+__all__ = ["center_argmin", "center_argmin_op", "center_argmin_reference",
+           "center_inputs", "center_candidates_reference", "MAX_CENTERS",
+           "TILE_H", "TILE_W"]
 
 # the kernel walks the centers kThreads at a time, so K has no shared-memory
 # limit; 4096 is the largest K it is tested at
@@ -153,37 +158,9 @@ def _check(py, px, cy, cx, c2) -> None:
             f"{tuple(cy.shape)}, {tuple(cx.shape)}, {tuple(c2.shape)}")
 
 
-def center_argmin(py, px, cy, cx, c2, *,
-                  kept_pairs: torch.Tensor | None = None) -> torch.Tensor:
-    """Nearest center index per pixel.
-
-    Args:
-        py, px: [B, H, W] f32 target coordinates (pixel + offset).
-        cy, cx, c2: [B, K] f32 from ``center_inputs``.
-        kept_pairs: None, or a one-element int64 tensor on py's device, to
-            which the call adds the number of (tile, center) pairs the
-            kernel scans (for CPU tensors: the count that
-            ``center_candidates_reference`` keeps at the kernel's tile).
-
-    Returns:
-        [B, H, W] int32 indices in [0, K).
-
-    CUDA tensors launch the kernel (and count one launch in
-    ``center_argmin.launches``); CPU tensors take
-    ``center_argmin_reference``.
-    """
-    _check(py, px, cy, cx, c2)
-    if kept_pairs is not None and (
-            kept_pairs.dtype != torch.int64 or kept_pairs.numel() != 1
-            or kept_pairs.device != py.device
-            or not kept_pairs.is_contiguous()):
-        raise ValueError("center_argmin: kept_pairs must be one contiguous "
-                         "int64 element on py's device")
-    if py.device.type == "cpu":
-        if kept_pairs is not None:
-            kept_pairs += center_candidates_reference(py, px, cy, cx,
-                                                      c2).sum()
-        return center_argmin_reference(py, px, cy, cx, c2)
+def _launch(py, px, cy, cx, c2, kept_pairs) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors (one count in
+    ``center_argmin.launches``); anything it does not take raises."""
     if py.device.type != "cuda":
         raise ValueError(f"center_argmin: unsupported device {py.device}")
     b, h, w = py.shape
@@ -210,6 +187,61 @@ def center_argmin(py, px, cy, cx, c2, *,
                            f"(cudaError {rc})")
     center_argmin.launches += 1
     return out
+
+
+# The op ``mgnet::center_argmin``: its CPU kernel is the plain version, its
+# CUDA kernel the hand-written one; torch.export and AOTInductor see it
+# through its fake (shape and dtype only) and keep it opaque. The C++
+# runner registers the same schema (export/csrc/mgnet_ops.cpp).
+@torch.library.custom_op("mgnet::center_argmin", mutates_args=(),
+                         device_types="cpu")
+def center_argmin_op(py: torch.Tensor, px: torch.Tensor, cy: torch.Tensor,
+                     cx: torch.Tensor, c2: torch.Tensor) -> torch.Tensor:
+    return center_argmin_reference(py, px, cy, cx, c2)
+
+
+@center_argmin_op.register_kernel("cuda")
+def _center_argmin_cuda(py, px, cy, cx, c2):
+    return _launch(py, px, cy, cx, c2, None)
+
+
+@center_argmin_op.register_fake
+def _center_argmin_fake(py, px, cy, cx, c2):
+    return py.new_empty(py.shape, dtype=torch.int32)
+
+
+def center_argmin(py, px, cy, cx, c2, *,
+                  kept_pairs: torch.Tensor | None = None) -> torch.Tensor:
+    """Nearest center index per pixel.
+
+    Args:
+        py, px: [B, H, W] f32 target coordinates (pixel + offset).
+        cy, cx, c2: [B, K] f32 from ``center_inputs``.
+        kept_pairs: None, or a one-element int64 tensor on py's device, to
+            which the call adds the number of (tile, center) pairs the
+            kernel scans (for CPU tensors: the count that
+            ``center_candidates_reference`` keeps at the kernel's tile).
+            Such a call launches the kernel directly, not through the op.
+
+    Returns:
+        [B, H, W] int32 indices in [0, K).
+
+    Calls ``mgnet::center_argmin``: CUDA tensors launch the kernel (and
+    count one launch in ``center_argmin.launches``); CPU tensors take
+    ``center_argmin_reference``.
+    """
+    _check(py, px, cy, cx, c2)
+    if kept_pairs is None:
+        return center_argmin_op(py, px, cy, cx, c2)
+    if (kept_pairs.dtype != torch.int64 or kept_pairs.numel() != 1
+            or kept_pairs.device != py.device
+            or not kept_pairs.is_contiguous()):
+        raise ValueError("center_argmin: kept_pairs must be one contiguous "
+                         "int64 element on py's device")
+    if py.device.type == "cpu":
+        kept_pairs += center_candidates_reference(py, px, cy, cx, c2).sum()
+        return center_argmin_reference(py, px, cy, cx, c2)
+    return _launch(py, px, cy, cx, c2, kept_pairs)
 
 
 center_argmin.launches = 0

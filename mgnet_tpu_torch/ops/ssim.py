@@ -7,7 +7,11 @@ CUDA kernels of ``csrc/ssim.cu`` (they replace the TPU kernels of
 ``ssim_residual_reference`` and ``ssim_residual_bwd_reference`` are the
 plain PyTorch versions: the wrappers use them for CPU tensors, and tests
 and ``chip_smoke.py`` hold the kernels against them. A CUDA tensor always
-goes to a kernel; anything a kernel does not take raises.
+goes to a kernel; anything a kernel does not take raises. The wrappers
+reach both through the custom ops ``mgnet::ssim_residual_fwd`` and
+``mgnet::ssim_residual_bwd`` (``ssim_residual_fwd_op``,
+``ssim_residual_bwd_op``), so that ``torch.compile`` and ``torch.export``
+see each kernel as one opaque call.
 
 The residual of planar x, y [B, C, H, W] is [B, H, W]:
 
@@ -23,8 +27,8 @@ PyTorch's CUDA division by a scalar does), so that CPU, card and kernel
 compute one function.
 
 ``fused_photometric_residual`` is the differentiable entry point: a
-``torch.autograd.Function`` whose forward is the forward kernel and whose
-backward is the backward kernel.
+``torch.autograd.Function`` whose forward is the forward op and whose
+backward is the backward op.
 """
 
 from __future__ import annotations
@@ -41,8 +45,10 @@ __all__ = [
     "SSIM_C2",
     "fused_photometric_residual",
     "ssim_residual_bwd",
+    "ssim_residual_bwd_op",
     "ssim_residual_bwd_reference",
     "ssim_residual_fwd",
+    "ssim_residual_fwd_op",
     "ssim_residual_reference",
 ]
 
@@ -199,17 +205,7 @@ def _f32(v: float) -> ctypes.c_float:
     return ctypes.c_float(v)
 
 
-def ssim_residual_fwd(x: torch.Tensor, y: torch.Tensor,
-                      ssim_weight: float = 0.85) -> torch.Tensor:
-    """Residual [B, H, W] of planar x, y [B, C, H, W].
-
-    CUDA tensors launch the forward kernel (one count in
-    ``ssim_residual_fwd.launches``); CPU tensors take
-    ``ssim_residual_reference``.
-    """
-    _check("ssim_residual_fwd", x, y)
-    if x.device.type == "cpu":
-        return ssim_residual_reference(x, y, ssim_weight)
+def _launch_fwd(x, y, ssim_weight: float) -> torch.Tensor:
     lib = _launch_ready("ssim_residual_fwd", (x, y), x.shape[0])
     b, c, h, w = x.shape
     out = torch.empty((b, h, w), dtype=torch.float32, device=x.device)
@@ -226,19 +222,8 @@ def ssim_residual_fwd(x: torch.Tensor, y: torch.Tensor,
     return out
 
 
-def ssim_residual_bwd(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
-                      ssim_weight: float = 0.85):
-    """(dx, dy) [B, C, H, W] of the residual, given its cotangent g
-    [B, H, W].
-
-    CUDA tensors launch the backward kernel (one count in
-    ``ssim_residual_bwd.launches``); CPU tensors take
-    ``ssim_residual_bwd_reference``.
-    """
+def _launch_bwd(x, y, g, ssim_weight: float):
     b, c, h, w = x.shape
-    _check("ssim_residual_bwd", x, y, g, shape=(b, h, w))
-    if x.device.type == "cpu":
-        return ssim_residual_bwd_reference(x, y, g, ssim_weight)
     lib = _launch_ready("ssim_residual_bwd", (x, y, g), b * c)
     dx = torch.empty_like(x)
     dy = torch.empty_like(x)
@@ -254,6 +239,74 @@ def ssim_residual_bwd(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
                            f"(cudaError {rc})")
     ssim_residual_bwd.launches += 1
     return dx, dy
+
+
+# The ops ``mgnet::ssim_residual_fwd`` and ``mgnet::ssim_residual_bwd``:
+# CPU kernels are the plain versions, CUDA kernels the hand-written ones,
+# fakes give the shapes for torch.export and torch.compile.
+@torch.library.custom_op("mgnet::ssim_residual_fwd", mutates_args=(),
+                         device_types="cpu")
+def ssim_residual_fwd_op(x: torch.Tensor, y: torch.Tensor,
+                         ssim_weight: float) -> torch.Tensor:
+    return ssim_residual_reference(x, y, ssim_weight)
+
+
+@ssim_residual_fwd_op.register_kernel("cuda")
+def _ssim_residual_fwd_cuda(x, y, ssim_weight):
+    return _launch_fwd(x, y, ssim_weight)
+
+
+@ssim_residual_fwd_op.register_fake
+def _ssim_residual_fwd_fake(x, y, ssim_weight):
+    b, _, h, w = x.shape
+    return x.new_empty((b, h, w))
+
+
+@torch.library.custom_op("mgnet::ssim_residual_bwd", mutates_args=(),
+                         device_types="cpu")
+def ssim_residual_bwd_op(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
+                         ssim_weight: float
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    # contiguous, as the kernel's outputs and the fake's are (the plain
+    # version returns views of the padded planes)
+    dx, dy = ssim_residual_bwd_reference(x, y, g, ssim_weight)
+    return dx.contiguous(), dy.contiguous()
+
+
+@ssim_residual_bwd_op.register_kernel("cuda")
+def _ssim_residual_bwd_cuda(x, y, g, ssim_weight):
+    return _launch_bwd(x, y, g, ssim_weight)
+
+
+@ssim_residual_bwd_op.register_fake
+def _ssim_residual_bwd_fake(x, y, g, ssim_weight):
+    return torch.empty_like(x), torch.empty_like(x)
+
+
+def ssim_residual_fwd(x: torch.Tensor, y: torch.Tensor,
+                      ssim_weight: float = 0.85) -> torch.Tensor:
+    """Residual [B, H, W] of planar x, y [B, C, H, W].
+
+    Calls ``mgnet::ssim_residual_fwd``: CUDA tensors launch the forward
+    kernel (one count in ``ssim_residual_fwd.launches``); CPU tensors take
+    ``ssim_residual_reference``.
+    """
+    _check("ssim_residual_fwd", x, y)
+    return ssim_residual_fwd_op(x, y, ssim_weight)
+
+
+def ssim_residual_bwd(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
+                      ssim_weight: float = 0.85):
+    """(dx, dy) [B, C, H, W] of the residual, given its cotangent g
+    [B, H, W].
+
+    Calls ``mgnet::ssim_residual_bwd``: CUDA tensors launch the backward
+    kernel (one count in ``ssim_residual_bwd.launches``); CPU tensors take
+    ``ssim_residual_bwd_reference``.
+    """
+    b, c, h, w = x.shape
+    _check("ssim_residual_bwd", x, y, g, shape=(b, h, w))
+    return ssim_residual_bwd_op(x, y, g, ssim_weight)
 
 
 ssim_residual_fwd.launches = 0

@@ -9,7 +9,9 @@ function, a transcription of ``_grid_sample_core``
 (``mgnet_tpu/geometry/image.py:166-243``) on a channel-planar image: the
 wrapper uses it for CPU tensors, and tests and ``chip_smoke.py`` hold the
 kernel against it. A CUDA tensor always goes to the kernel; anything the
-kernel does not take raises.
+kernel does not take raises. The wrapper reaches both through the custom
+op ``mgnet::warp_bilinear`` (``warp_bilinear_op``), so that
+``torch.compile`` and ``torch.export`` see the kernel as one opaque call.
 
 Both take a planar image [B, C, H, W] and normalized coords
 [B, H', W', 2] in (x, y) order, sample with torch's ``grid_sample``
@@ -27,7 +29,7 @@ import torch
 
 from mgnet_tpu_torch.ops._build import load_library
 
-__all__ = ["warp_bilinear", "warp_bilinear_reference"]
+__all__ = ["warp_bilinear", "warp_bilinear_op", "warp_bilinear_reference"]
 
 _MAX_BATCH = 65535  # gridDim.y
 
@@ -95,17 +97,10 @@ def _check(image, coords) -> None:
             f"{tuple(coords.shape)}")
 
 
-def warp_bilinear(image: torch.Tensor, coords: torch.Tensor,
-                  with_grads: bool = True):
-    """Sample planar ``image`` at normalized ``coords``.
-
-    CUDA tensors launch the kernel (and count one launch in
-    ``warp_bilinear.launches``); CPU tensors take
-    ``warp_bilinear_reference``.
-    """
-    _check(image, coords)
-    if image.device.type == "cpu":
-        return warp_bilinear_reference(image, coords, with_grads)
+def _launch(image, coords, with_grads: bool):
+    """Launch the kernel on CUDA tensors (one count in
+    ``warp_bilinear.launches``); anything it does not take raises. Without
+    grads, gx and gy are empty [0] tensors (the op returns no None)."""
     if image.device.type != "cuda":
         raise ValueError(f"warp_bilinear: unsupported device {image.device}")
     b, c, h, w = image.shape
@@ -118,8 +113,8 @@ def warp_bilinear(image: torch.Tensor, coords: torch.Tensor,
     lib = load_library()
     out = torch.empty((b, c, oh, ow), dtype=torch.float32,
                       device=image.device)
-    gx = torch.empty_like(out) if with_grads else None
-    gy = torch.empty_like(out) if with_grads else None
+    gx = torch.empty_like(out) if with_grads else out.new_empty(0)
+    gy = torch.empty_like(out) if with_grads else out.new_empty(0)
     with torch.cuda.device(image.device):
         stream = torch.cuda.current_stream(image.device).cuda_stream
         rc = lib.mgnet_warp_bilinear(
@@ -132,6 +127,48 @@ def warp_bilinear(image: torch.Tensor, coords: torch.Tensor,
                            f"(cudaError {rc})")
     warp_bilinear.launches += 1
     return out, gx, gy
+
+
+# The op ``mgnet::warp_bilinear``: its CPU kernel is the plain version, its
+# CUDA kernel the hand-written one, its fake gives the shapes for
+# torch.export and torch.compile. Without grads it returns gx and gy as
+# empty [0] tensors.
+@torch.library.custom_op("mgnet::warp_bilinear", mutates_args=(),
+                         device_types="cpu")
+def warp_bilinear_op(image: torch.Tensor, coords: torch.Tensor,
+                     with_grads: bool
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    out, gx, gy = warp_bilinear_reference(image, coords, with_grads)
+    if not with_grads:
+        gx, gy = out.new_empty(0), out.new_empty(0)
+    return out, gx, gy
+
+
+@warp_bilinear_op.register_kernel("cuda")
+def _warp_bilinear_cuda(image, coords, with_grads):
+    return _launch(image, coords, with_grads)
+
+
+@warp_bilinear_op.register_fake
+def _warp_bilinear_fake(image, coords, with_grads):
+    b, c = image.shape[:2]
+    out = image.new_empty((b, c, coords.shape[1], coords.shape[2]))
+    if not with_grads:
+        return out, image.new_empty(0), image.new_empty(0)
+    return out, torch.empty_like(out), torch.empty_like(out)
+
+
+def warp_bilinear(image: torch.Tensor, coords: torch.Tensor,
+                  with_grads: bool = True):
+    """Sample planar ``image`` at normalized ``coords``.
+
+    Calls ``mgnet::warp_bilinear``: CUDA tensors launch the kernel (and
+    count one launch in ``warp_bilinear.launches``); CPU tensors take
+    ``warp_bilinear_reference``.
+    """
+    _check(image, coords)
+    out, gx, gy = warp_bilinear_op(image, coords, with_grads)
+    return (out, gx, gy) if with_grads else (out, None, None)
 
 
 warp_bilinear.launches = 0

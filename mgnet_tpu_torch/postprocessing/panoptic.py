@@ -11,8 +11,9 @@ computes the same numbers directly:
 * top-K: a stable descending sort (``panoptic.py:59-84`` is a two-stage
   ``lax.top_k``). Slots keep top-K order, ties go to the lower flat index,
   and only ``scores > 0`` slots are valid;
-* vote counts: ``bincount`` of (cluster, class) pairs (``:213-247`` is a
-  one-hot matmul);
+* vote counts: a scatter-add of (cluster, class) pairs into a buffer of
+  fixed size (``:213-247`` is a one-hot matmul), so that nothing waits
+  for the device and the frame has static shapes for ``torch.export``;
 * per-pixel lookups: gathers (``:27-56``, ``:263`` are one-hot matmuls).
 
 Unlike the JAX function, which is written for one image and vmapped,
@@ -29,7 +30,7 @@ import torch.nn.functional as F
 
 from mgnet_tpu_torch.ops.center_argmin import center_argmin, center_inputs
 
-__all__ = ["panoptic_fusion", "find_instance_centers"]
+__all__ = ["panoptic_fusion", "find_instance_centers", "vote_counts"]
 
 
 def find_instance_centers(center_heatmap: torch.Tensor, threshold: float,
@@ -52,6 +53,29 @@ def find_instance_centers(center_heatmap: torch.Tensor, threshold: float,
     ys = torch.div(flat_idx, w, rounding_mode="floor").float()
     xs = (flat_idx % w).float()
     return torch.stack([ys, xs], dim=-1), scores > 0, scores
+
+
+def vote_counts(cluster: torch.Tensor, sem: torch.Tensor, num_clusters: int,
+                num_classes: int) -> torch.Tensor:
+    """counts[b, k, c] = |{pixels: cluster == k and sem == c}| of [B, H, W]
+    int64 cluster ids in [0, num_clusters) and classes in [0,
+    num_classes): [B, num_clusters, num_classes] int32.
+
+    A scatter-add of ones into a zeroed buffer of fixed size: integer sums,
+    so any order of the atomics gives ``bincount``'s counts, and nothing is
+    read back to the host to size the output (``bincount`` reads its
+    input's maximum). The counts are int32 (a count is at most H * W):
+    Inductor adds int32 atomically in its generated code, where an int64
+    scatter falls back to ATen's sort-based ``index_put_``, which
+    serialises the duplicates of a frame's few crowded bins and costs
+    many times the whole frame."""
+    b = cluster.shape[0]
+    batch = torch.arange(b, device=cluster.device)[:, None, None]
+    pair = ((batch * num_clusters + cluster) * num_classes + sem).reshape(-1)
+    counts = torch.zeros(b * num_clusters * num_classes, dtype=torch.int32,
+                         device=cluster.device)
+    counts.index_add_(0, pair, torch.ones_like(pair, dtype=torch.int32))
+    return counts.reshape(b, num_clusters, num_classes)
 
 
 def _cluster_pixels(centers_yx, valid, offsets, thing_mask,
@@ -104,14 +128,8 @@ def panoptic_fusion(
     cluster = _cluster_pixels(centers, valid, offsets.float(), thing_mask,
                               argmin).long()
 
-    # counts[b, k, c] = |{pixels: cluster == k and sem == c}|; row 0 is
-    # also the per-class stuff-area histogram
-    n_k = max_instances + 1
-    batch = torch.arange(b, device=sem.device)[:, None, None]
-    pair = (batch * n_k + cluster) * num_classes + sem
-    counts = torch.bincount(pair.reshape(-1),
-                            minlength=b * n_k * num_classes
-                            ).reshape(b, n_k, num_classes)
+    # row 0 of the counts is also the per-class stuff-area histogram
+    counts = vote_counts(cluster, sem, max_instances + 1, num_classes)
 
     thing_class = torch.arange(num_classes, device=sem.device) > last_stuff_id
     voted_class = torch.argmax(torch.where(thing_class, counts, -1),

@@ -197,8 +197,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     wall = time.time() - t0
     # the steady window opens when the second batch is enqueued: the
     # first batch's set-up is left out, and its copy to the host, which
-    # follows that enqueue, is in, whether the frame returns before its
-    # work is done or (as the class vote's bincount makes it) after
+    # follows that enqueue, is in, with the rest of its device work (the
+    # frame returns before its work is done: nothing in it waits for the
+    # card)
     steady = ((n_done - flushed[0][0]) / (time.time() - flushed[1][1])
               if len(flushed) > 1 else n_done / max(wall, 1e-9))
     print(f"Wrote pseudo labels for {len(dataset)} images to "

@@ -643,3 +643,100 @@ def test_two_gloo_ranks_on_one_card_equal_one_rank(card_ranks, case):
     assert max(stats.values()) < DIST_REL, max(stats, key=stats.get)
     for k, v in got[0]["params"].items():
         assert torch.equal(v, got[1]["params"][k]), k
+
+
+@pytest.fixture(scope="module")
+def card_package(tmp_path_factory):
+    """The narrow float32 frame (32-channel heads, seeded weights) on the
+    card at 1x64x128 with a camera, exported and compiled by AOTInductor:
+    (frame, package, package path, inputs with the runner's camera)."""
+    _need_card()
+    from mgnet_tpu_torch.config import get_default_config
+    from mgnet_tpu_torch.data import (
+        CITYSCAPES_SCENE_SEG_CATEGORIES,
+        Metadata,
+        build_meta,
+    )
+    from mgnet_tpu_torch.export import (
+        export_fused_inference,
+        load_exported,
+        save_exported,
+    )
+    from mgnet_tpu_torch.inference import (
+        build_fused_inference,
+        statics_from_meta,
+    )
+    from mgnet_tpu_torch.models import build_model, init_random_
+
+    cfg = get_default_config()
+    cfg.MODEL.COMPUTE_DTYPE = "float32"
+    cfg.MODEL.GCM.GCM_CHANNELS = 32
+    h = cfg.MODEL.SEM_SEG_HEAD
+    h.ARM_CHANNELS, h.REFINE_CHANNELS = [32, 32], [32, 32]
+    h.FFM_CHANNELS, h.HEAD_CHANNELS = 48, 32
+    model = build_model(cfg, device="cpu")
+    init_random_(model, torch.Generator().manual_seed(0))
+    model.cuda().eval()
+    statics = statics_from_meta(cfg, Metadata(name="t").set(
+        **build_meta(CITYSCAPES_SCENE_SEG_CATEGORIES)))
+    frame = build_fused_inference(model, statics, cfg.MODEL.PIXEL_MEAN,
+                                  cfg.MODEL.PIXEL_STD, device="cuda")
+    program, blob = export_fused_inference(frame, (1, 64, 128, 3))
+    path = tmp_path_factory.mktemp("card_export") / "frame.pt2"
+    pkg, _ = save_exported(path, program, blob)
+    g = torch.Generator().manual_seed(3)
+    image = torch.randint(0, 256, (1, 64, 128, 3), generator=g).float()
+    inputs = (image.cuda(),
+              torch.tensor([[[2262.52, 0.0, 1096.98], [0.0, 2265.30, 513.137],
+                             [0.0, 0.0, 1.0]]], device="cuda"),
+              torch.tensor([1.22], device="cuda"))
+    return frame, load_exported(path), pkg, inputs
+
+
+@pytest.mark.gpu
+def test_package_on_the_card_matches_the_eager_frame(card_package):
+    """The AOTInductor package launches the hand-written center_argmin
+    once a frame and matches the eager frame at the float32 bars (TF32 off
+    for both: the convolutions are cuDNN's in both, at the same flags)."""
+    from mgnet_tpu_torch.export import BARS, compare_outputs
+
+    frame, package, _, inputs = card_package
+    allow = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        before = center_argmin.launches
+        got = package(*inputs)
+        torch.cuda.synchronize()
+        assert center_argmin.launches == before + 1
+        want = frame(*inputs)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = allow
+    # tests/test_torch_fused.py's bars, on every value
+    found = compare_outputs(got, want, frame.statics,
+                            *BARS[torch.float32][:3], 1.0)
+    print(f"package against eager on the card: {found}")
+
+
+@pytest.mark.gpu
+def test_runner_checksum_equals_the_package(card_package, tmp_path):
+    """The C++ runner (built at first use) runs the same package on the
+    same image with the same camera: its FNV-1a of the panoptic output is
+    the Python-loaded package's, and it launches the kernel once a frame."""
+    import subprocess
+
+    from mgnet_tpu_torch.export import fnv1a64
+    from mgnet_tpu_torch.ops._build import build_runner
+
+    _, package, pkg, inputs = card_package
+    exe, _ = build_runner()
+    raw = tmp_path / "image.raw"
+    inputs[0].cpu().numpy().tofile(raw)
+    res = subprocess.run([str(exe), str(pkg), str(raw), "5", "64", "128"],
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    fnv = int(res.stdout.split("fnv1a=")[1].split()[0], 16)
+    assert fnv == fnv1a64(package(*inputs)["panoptic"]), res.stdout
+    assert "center_argmin launches: 16 in 16 frames" in res.stdout
