@@ -30,6 +30,8 @@ from mgnet_tpu_torch.data.mapper import (
     rgb2id,
 )
 from mgnet_tpu_torch.data.synthetic import (
+    make_synthetic_cityscapes_raw,
+    make_synthetic_kitti_raw,
     synthetic_train_batch,
     write_cityscapes_tree,
 )
@@ -56,6 +58,8 @@ __all__ = [
     "read_image",
     "read_png",
     "write_png",
+    "make_synthetic_cityscapes_raw",
+    "make_synthetic_kitti_raw",
     "synthetic_train_batch",
     "write_cityscapes_tree",
 ]

@@ -10,6 +10,12 @@ panoptic targets of two thing instances on one stuff class per image.
 disk, for the datasets' path through ``data/cityscapes.py``,
 ``data/mapper.py`` and ``data/loader.py``, and optionally a val split with
 disparity ground truth for the evaluation.
+
+``make_synthetic_cityscapes_raw`` and ``make_synthetic_kitti_raw`` are the
+JAX package's raw trees (``mgnet_tpu/data/synthetic.py:85,138``) with the
+same signatures, seeds and draw order, written through ``write_png``: the
+runbook's inputs before conversion (instanceIds, not yet COCO-panoptic),
+so that preparation, training and evaluation run without real data.
 """
 
 from __future__ import annotations
@@ -25,7 +31,8 @@ from mgnet_tpu_torch.data.image_io import write_png
 from mgnet_tpu_torch.data.mapper import id2rgb
 from mgnet_tpu_torch.data.target_generator import PanopticTargetGenerator
 
-__all__ = ["synthetic_train_batch", "write_cityscapes_tree"]
+__all__ = ["make_synthetic_cityscapes_raw", "make_synthetic_kitti_raw",
+           "synthetic_train_batch", "write_cityscapes_tree"]
 
 
 def synthetic_train_batch(
@@ -220,3 +227,89 @@ def _write_val(base: str, sizes, rng: np.random.Generator,
     with open(os.path.join(base, "gtFine", "cityscapes_panoptic_val.json"),
               "w") as fh:
         json.dump({"annotations": anns, "categories": []}, fh)
+
+
+def make_synthetic_cityscapes_raw(root: str, split: str = "train",
+                                  n_images: int = 2,
+                                  height: int = 128, width: int = 256,
+                                  seed: int = 7) -> None:
+    """Write a raw synthetic Cityscapes tree under ``root/cityscapes``:
+    per image, a random frame and its three sequence frames, a 16-bit
+    instanceIds PNG (road, id 7, and one car, 26000 + n), a camera JSON and
+    a random 16-bit disparity PNG; the input of
+    ``tools.prepare_cityscapes``."""
+    rng = np.random.RandomState(seed)
+    city = "smokecity"
+    dirs = {
+        "img": f"{root}/cityscapes/leftImg8bit/{split}/{city}",
+        "seq": f"{root}/cityscapes/leftImg8bit_sequence/{split}/{city}",
+        "cam": f"{root}/cityscapes/camera/{split}/{city}",
+        "disp": f"{root}/cityscapes/disparity/{split}/{city}",
+        "raw_gt": f"{root}/cityscapes/gtFine/{split}/{city}",
+    }
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+
+    for n in range(n_images):
+        stem = f"{city}_{n:06d}_000010"
+        img = rng.randint(0, 255, (height, width, 3), np.uint8)
+        write_png(f"{dirs['img']}/{stem}_leftImg8bit.png", img)
+        for i in (9, 10, 11):
+            frame = f"{city}_{n:06d}_{i:06d}"
+            write_png(f"{dirs['seq']}/{frame}_leftImg8bit.png",
+                      rng.randint(0, 255, (height, width, 3), np.uint8))
+
+        inst = np.full((height, width), 7, np.int32)
+        y0 = 30 + 10 * n
+        inst[y0:y0 + 40, 100:160] = 26000 + n
+        write_png(f"{dirs['raw_gt']}/{stem}_gtFine_instanceIds.png",
+                  inst.astype(np.uint16))
+
+        with open(f"{dirs['cam']}/{stem}_camera.json", "w") as f:
+            json.dump({
+                "intrinsic": {"fx": 226.0, "fy": 226.0,
+                              "u0": (width - 1) / 2,
+                              "v0": (height - 1) / 2},
+                "extrinsic": {"baseline": 0.222, "z": 1.22},
+            }, f)
+        disp = rng.randint(500, 20000, (height, width)).astype(np.uint16)
+        write_png(f"{dirs['disp']}/{stem}_disparity.png", disp)
+
+
+def make_synthetic_kitti_raw(root: str, n_frames: int = 7,
+                             height: int = 96, width: int = 320,
+                             seed: int = 11) -> None:
+    """Write a raw synthetic KITTI-Eigen tree under ``root/kitti_eigen``:
+    one drive of ``n_frames`` random frames (``<date>/<drive>/image_02/
+    data``), a sparse 16-bit depth ground truth for the middle frame, the
+    date's ``calib_cam_to_cam.txt`` and the eigen_zhou (interior frames)
+    and eigen_test split lists."""
+    rng = np.random.RandomState(seed)
+    date = "2011_09_26"
+    drive = f"{date}/{date}_drive_0001_sync"
+    img_dir = f"{root}/kitti_eigen/{drive}/image_02/data"
+    depth_dir = f"{root}/kitti_eigen/{drive}/proj_depth/groundtruth/image_02"
+    splits = f"{root}/kitti_eigen/data_splits"
+    for d in (img_dir, depth_dir, splits):
+        os.makedirs(d, exist_ok=True)
+
+    for i in range(n_frames):
+        write_png(f"{img_dir}/{i:010d}.png",
+                  rng.randint(0, 255, (height, width, 3), np.uint8))
+
+    test_frame = n_frames // 2
+    depth = (rng.uniform(2.0, 60.0, (height, width)) * 256).astype(np.uint16)
+    depth[rng.rand(height, width) < 0.7] = 0  # sparse, like projected lidar
+    write_png(f"{depth_dir}/{test_frame:010d}.png", depth)
+
+    with open(f"{root}/kitti_eigen/{date}/calib_cam_to_cam.txt", "w") as f:
+        f.write("calib_time: 2011\n")
+        f.write(f"P_rect_02: {0.8 * width} 0.0 {(width - 1) / 2} 0.0 "
+                f"0.0 {0.8 * width} {(height - 1) / 2} 0.0 "
+                "0.0 0.0 1.0 0.0\n")
+
+    with open(f"{splits}/eigen_zhou_files.txt", "w") as f:
+        for i in range(1, n_frames - 1):
+            f.write(f"{drive}/image_02/data/{i:010d}.png l\n")
+    with open(f"{splits}/eigen_test_files.txt", "w") as f:
+        f.write(f"{drive}/image_02/data/{test_frame:010d}.png l\n")

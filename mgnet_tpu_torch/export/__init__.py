@@ -3,13 +3,17 @@
 
 from mgnet_tpu_torch.export.aot import (
     BARS,
+    BarsMissed,
+    compare_exact,
     compare_outputs,
     export_fused_inference,
     fnv1a64,
     load_exported,
+    load_program,
     package_path,
     save_exported,
 )
 
-__all__ = ["BARS", "compare_outputs", "export_fused_inference",
-           "fnv1a64", "load_exported", "package_path", "save_exported"]
+__all__ = ["BARS", "BarsMissed", "compare_exact", "compare_outputs",
+           "export_fused_inference", "fnv1a64", "load_exported",
+           "load_program", "package_path", "save_exported"]

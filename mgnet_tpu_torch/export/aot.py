@@ -38,22 +38,25 @@ from mgnet_tpu_torch.ops.center_argmin import center_argmin_reference
 from mgnet_tpu_torch.postprocessing.panoptic import panoptic_fusion
 
 __all__ = ["export_fused_inference", "save_exported", "load_exported",
-           "package_path", "compare_outputs", "fnv1a64", "BARS"]
+           "load_program", "package_path", "compare_exact",
+           "compare_outputs", "BarsMissed", "fnv1a64", "BARS"]
 
 # The exported frame against the live one, by the model's compute dtype:
 # (the share of pixels on which the labels agree, at least; the continuous
 # outputs' abs and rel tolerance where panoptic's classes agree, since the
 # depth filters read them; the share of their values that must lie within
-# it), as compare_outputs holds them. Inductor's fused code rounds differently from eager
-# (another order of a fused reduction, a transcendental a float32 ulp
-# apart), and weights that are seeded, or trained a few steps, on the
-# ImageNet backbone amplify such a difference on a few pixels. In float32
-# the labels and tolerance are tests/test_torch_fused.py's bars against
-# the JAX frame (which the CPU tests hold on every value, at narrow seeded
-# heads); the share of values is the one found on the H100 at 512x1024
-# with the ImageNet backbone and seeded heads. In bfloat16 a one-ulp rounding moves by 2**-8, and the bar is
-# the one found on the H100 for the 1024x2048 frame with seeded heads
-# (chip_smoke.py's export phase, PERF.md).
+# it), as compare_outputs holds them. Inductor's fused code rounds
+# differently from eager (another order of a fused reduction, a
+# transcendental a float32 ulp apart), and weights that are seeded, or
+# trained a few steps, on the ImageNet backbone amplify such a difference
+# on a few pixels. In float32 the labels and tolerance are
+# tests/test_torch_fused.py's bars against the JAX frame (which the CPU
+# tests hold on every value, at narrow seeded heads); the share of values
+# is the one found on the H100 at 512x1024 with the ImageNet backbone and
+# seeded heads. In bfloat16 a one-ulp rounding moves by 2**-8, and the bar
+# is the one found on the H100 for the 1024x2048 frame with heads seeded
+# by N(0, 1/fan_in); heads seeded by the JAX package's rule, and the
+# trainer's model_final, miss it (an open fault: PERF.md, ROADMAP).
 BARS = {torch.float32: (0.999, 1e-4, 1e-4, 0.98),
         torch.bfloat16: (0.97, 1e-2, 2e-2, 0.99)}
 
@@ -144,6 +147,59 @@ def load_exported(path) -> Callable:
     return torch._inductor.aoti_load_package(os.fspath(package_path(path)))
 
 
+def load_program(path) -> Callable:
+    """The ``ExportedProgram`` that ``save_exported`` wrote at ``path`` as
+    a callable: the same ATen ops as the live frame, run eagerly, without
+    gradients, returning the frame's dict."""
+    module = torch.export.load(os.fspath(path)).module()
+
+    def run(*args):
+        with torch.no_grad():
+            return module(*args)
+
+    return run
+
+
+def compare_exact(got, want) -> dict:
+    """Hold ``got`` to ``want`` (dicts of tensors) bit for bit: the same
+    keys, shapes and dtypes, and every value equal (NaN where ``want`` has
+    NaN). Raises AssertionError naming each key that differs, with its
+    share of differing values and its max |diff|.
+
+    Returns {key: the number of values compared}."""
+    if set(got) != set(want):
+        raise AssertionError(f"keys {sorted(got)} != {sorted(want)}")
+    failed, counted = [], {}
+    for key in sorted(want):
+        g, w = got[key], want[key]
+        if (g.shape, g.dtype) != (w.shape, w.dtype):
+            failed.append(f"{key}: {g.shape} {g.dtype} != {w.shape} "
+                          f"{w.dtype}")
+            continue
+        same = g == w
+        if g.is_floating_point():
+            same |= torch.isnan(g) & torch.isnan(w)
+        if not bool(same.all()):
+            diff = (g.double() - w.double()).abs()
+            failed.append(f"{key}: {float((~same).double().mean()):.6g} of "
+                          f"the values differ, max |diff| "
+                          f"{float(diff.nan_to_num(float('inf')).max()):.6g}")
+        counted[key] = w.numel()
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return counted
+
+
+class BarsMissed(AssertionError):
+    """The bars that ``compare_outputs`` found missed: ``missed`` maps each
+    bar's name (a label's, or an output key) to the share found (None for
+    NaN at other pixels), ``found`` is its whole result."""
+
+    def __init__(self, message: str, missed: dict, found: dict):
+        super().__init__(message)
+        self.missed, self.found = missed, found
+
+
 def compare_outputs(got, want, statics, agree: float, atol: float,
                     rtol: float, within: float = 1.0):
     """Hold the frame outputs ``got`` to ``want`` (dicts of tensors) of a
@@ -154,7 +210,8 @@ def compare_outputs(got, want, statics, agree: float, atol: float,
     ``center_argmin_reference``); of every other output, at least
     ``within`` of the values within ``atol`` + ``rtol`` * |want| where the
     classes agree (everywhere without panoptic), with NaN where ``want``
-    has NaN. Raises AssertionError naming every bar missed.
+    has NaN. Raises BarsMissed (an AssertionError) naming every bar
+    missed.
 
     Panoptic is held to the fusion of its own heads, not to ``want``'s:
     where a heatmap is flat at its peak (a saturated sigmoid), a center
@@ -179,7 +236,7 @@ def compare_outputs(got, want, statics, agree: float, atol: float,
     got = {k: v.cpu() for k, v in got.items()}
     want = {k: v.cpu() for k, v in want.items()}
     found = {"agree": {}, "within": {}, "max_abs": {}}
-    failed = []
+    failed, missed = [], {}
     if fused is not None:
         div = statics.label_divisor
         g_cls = torch.div(got["panoptic"], div, rounding_mode="floor")
@@ -192,6 +249,7 @@ def compare_outputs(got, want, statics, agree: float, atol: float,
             if found["agree"][name] < agree:
                 failed.append(f"{name} equal on {found['agree'][name]:.6f} "
                               f"of the pixels < {agree}")
+                missed[name] = found["agree"][name]
     else:
         same = torch.ones(want["depth"].shape, dtype=torch.bool)
     for key in sorted(set(want) - {"sem_seg", "panoptic"}):
@@ -200,6 +258,7 @@ def compare_outputs(got, want, statics, agree: float, atol: float,
         g, w = g[m], w[m]
         if not torch.equal(torch.isnan(g), torch.isnan(w)):
             failed.append(f"{key} NaN at other pixels")
+            missed[f"{key} NaN"] = None
         ok = ~torch.isnan(w)
         err = (g[ok] - w[ok]).abs()
         close = err <= atol + rtol * w[ok].abs()
@@ -209,8 +268,10 @@ def compare_outputs(got, want, statics, agree: float, atol: float,
         if found["within"][key] < within:
             failed.append(f"{key} {found['within'][key]:.6f} of the values "
                           f"within {atol} + {rtol} * |want| < {within}")
+            missed[key] = found["within"][key]
     if failed:
-        raise AssertionError(f"{'; '.join(failed)} (found {found})")
+        raise BarsMissed(f"{'; '.join(failed)} (found {found})", missed,
+                         found)
     return found
 
 

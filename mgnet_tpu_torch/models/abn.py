@@ -25,6 +25,15 @@ E[(x - mean)^2]; n counts every rank's values. Each rank applies the same
 update to its running statistics, so they stay equal without a
 broadcast.
 
+Each conv records, as ``conv.init``, the rule its JAX counterpart draws its
+kernel from (``mgnet_tpu/models/abn.py:37-63``, ``layers.py:116-232``),
+and ``init_conv_`` draws it so: ``kaiming_normal_fan_out``,
+N(0, 2 / (kh kw out)), for the ResNet convs and the ``"default"`` and
+``"msra"`` methods; ``mgnet_xavier_init``, N(0, 1 / (kh kw in)), for
+``"xavier"``; ``lecun_normal``, flax's normal truncated at +-2 sigma and
+rescaled by 1 / 0.87962566 so that its std is sqrt(1 / (kh kw in)), for
+the predictors of a non-xavier head.
+
 ``checkpoint_once`` is ``torch.utils.checkpoint`` for a module that holds
 ABN: the recompute in the backward normalizes with the same batch
 statistics (all-reducing again, on every rank at the same point of the
@@ -34,6 +43,8 @@ forward, as under the JAX package's functional ``nn.remat``.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -42,10 +53,47 @@ from torch.utils.checkpoint import checkpoint
 from mgnet_tpu_torch.parallel.collectives import all_mean
 from mgnet_tpu_torch.parallel.multihost import process_count
 
-__all__ = ["ABN", "ConvABN", "BN_EPS", "BN_MOMENTUM", "checkpoint_once"]
+__all__ = ["ABN", "ConvABN", "BN_EPS", "BN_MOMENTUM", "INITS",
+           "checkpoint_once", "init_conv_", "recorded"]
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.99  # flax form: running = momentum * running + (1 - m) * batch
+
+# a config's INIT_METHOD -> the rule its ConvABN kernels draw from
+INITS = {"default": "kaiming_normal_fan_out", "msra": "kaiming_normal_fan_out",
+         "xavier": "mgnet_xavier_init"}
+# flax's truncated_normal: the std of a unit normal truncated at +-2
+_TRUNCATED_STD = 0.87962566103423978
+
+
+def recorded(conv: nn.Conv2d, rule: str) -> nn.Conv2d:
+    """``conv`` with ``rule`` recorded as the init its kernel draws from."""
+    if rule not in ("kaiming_normal_fan_out", "mgnet_xavier_init",
+                    "lecun_normal"):
+        raise ValueError(f"unknown init rule {rule!r}")
+    conv.init = rule
+    return conv
+
+
+@torch.no_grad()
+def init_conv_(conv: nn.Conv2d, generator: torch.Generator) -> None:
+    """Draw ``conv``'s kernel by its recorded rule with ``generator`` (on
+    the kernel's device) and zero its bias."""
+    w = conv.weight
+    out_c, in_c, kh, kw = w.shape
+    if conv.init == "kaiming_normal_fan_out":
+        std = math.sqrt(2.0 / (kh * kw * out_c))
+    else:
+        std = math.sqrt(1.0 / (kh * kw * in_c))
+    if conv.init == "lecun_normal":
+        unit = torch.empty(w.shape, device=w.device)
+        nn.init.trunc_normal_(unit, generator=generator)
+        w.copy_(unit * (std / _TRUNCATED_STD))
+    else:
+        w.copy_(torch.randn(w.shape, generator=generator, device=w.device)
+                * std)
+    if conv.bias is not None:
+        conv.bias.zero_()
 
 
 class ABN(nn.Module):
@@ -104,16 +152,18 @@ class ABN(nn.Module):
 
 
 class ConvABN(nn.Module):
-    """Bias-free Conv2d with torch-style symmetric padding k//2, then ABN."""
+    """Bias-free Conv2d with torch-style symmetric padding k//2, then ABN;
+    the kernel draws from ``INITS[init_method]``."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1,
                  activation: str = "leaky_relu",
-                 fast_variance: bool = True):
+                 fast_variance: bool = True, init_method: str = "default"):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size,
-                              stride=stride, padding=kernel_size // 2,
-                              bias=False)
+        self.conv = recorded(nn.Conv2d(in_channels, out_channels,
+                                       kernel_size, stride=stride,
+                                       padding=kernel_size // 2, bias=False),
+                             INITS[init_method])
         self.abn = ABN(out_channels, activation, fast_variance)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,11 @@ Port of ``mgnet_tpu/models/layers.py``, with the pose network ``PoseCNN``.
 Module and attribute names follow the JAX variable tree so that weights
 carry across by name (utils/weights.py). The pooled [B, C, 1, 1] BN sites
 (the GCM and the ARM attention) use the two-pass batch variance in
-training, as the JAX package does.
+training, as the JAX package does. Each module takes the ``init_method``
+of its config (``INIT_METHOD``) for its conv-ABNs; the FFM attention and
+PoseCNN decoder convs draw from ``mgnet_xavier_init`` whatever it is, and a
+head's predictor from it under ``"xavier"``, else from ``lecun_normal``,
+as in the JAX package (models/abn.py).
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ import torch
 from torch import nn
 
 from mgnet_tpu_torch.geometry.image import interpolate_nearest
-from mgnet_tpu_torch.models.abn import ConvABN
+from mgnet_tpu_torch.models.abn import ConvABN, recorded
 from mgnet_tpu_torch.models.resnet import ResNetABN
 
 __all__ = [
@@ -35,10 +39,11 @@ def _global_avg_pool(x: torch.Tensor) -> torch.Tensor:
 class GlobalContextModule(nn.Module):
     """Global avg-pool -> 1x1 conv-ABN -> broadcast to the input size."""
 
-    def __init__(self, in_channels: int, out_channels: int = 128):
+    def __init__(self, in_channels: int, out_channels: int = 128,
+                 init_method: str = "xavier"):
         super().__init__()
         self.conv = ConvABN(in_channels, out_channels, 1,
-                            fast_variance=False)
+                            fast_variance=False, init_method=init_method)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.conv(_global_avg_pool(x))
@@ -49,12 +54,15 @@ class AttentionRefinementModule(nn.Module):
     """3x3 conv-ABN, then channel attention (pool -> 1x1 conv-ABN-identity
     -> sigmoid) multiplied in."""
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int,
+                 init_method: str = "xavier"):
         super().__init__()
-        self.conv = ConvABN(in_channels, out_channels, 3)
+        self.conv = ConvABN(in_channels, out_channels, 3,
+                            init_method=init_method)
         self.attention_conv = ConvABN(out_channels, out_channels, 1,
                                       activation="identity",
-                                      fast_variance=False)
+                                      fast_variance=False,
+                                      init_method=init_method)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         fm = self.conv(x)
@@ -65,13 +73,15 @@ class AttentionRefinementModule(nn.Module):
 class FeatureFusionModule(nn.Module):
     """concat -> 1x1 conv-ABN -> channel attention -> fm + fm * atten."""
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int,
+                 init_method: str = "xavier"):
         super().__init__()
-        self.conv = ConvABN(in_channels, out_channels, 1)
-        self.attention_conv1 = nn.Conv2d(out_channels, out_channels, 1,
-                                         bias=False)
-        self.attention_conv2 = nn.Conv2d(out_channels, out_channels, 1,
-                                         bias=False)
+        self.conv = ConvABN(in_channels, out_channels, 1,
+                            init_method=init_method)
+        self.attention_conv1 = recorded(nn.Conv2d(
+            out_channels, out_channels, 1, bias=False), "mgnet_xavier_init")
+        self.attention_conv2 = recorded(nn.Conv2d(
+            out_channels, out_channels, 1, bias=False), "mgnet_xavier_init")
 
     def forward(self, fsp: torch.Tensor, fcp: torch.Tensor) -> torch.Tensor:
         fm = self.conv(torch.cat([fsp, fcp], dim=1))
@@ -92,16 +102,18 @@ class MGNetDecoder(nn.Module):
     def __init__(self, in_channels: Dict[str, int],
                  arm_channels: Sequence[int] = (128, 128),
                  refine_channels: Sequence[int] = (128, 128),
-                 ffm_channels: int = 256):
+                 ffm_channels: int = 256, init_method: str = "xavier"):
         super().__init__()
         coarse_in = [in_channels["res5"], in_channels["res4"]]
         for i in range(2):
             self.add_module(f"arm{i}", AttentionRefinementModule(
-                coarse_in[i], arm_channels[i]))
+                coarse_in[i], arm_channels[i], init_method))
             self.add_module(f"refine{i}", ConvABN(
-                arm_channels[i], refine_channels[i], 3))
+                arm_channels[i], refine_channels[i], 3,
+                init_method=init_method))
         self.ffm = FeatureFusionModule(
-            in_channels["res3"] + refine_channels[1], ffm_channels)
+            in_channels["res3"] + refine_channels[1], ffm_channels,
+            init_method)
 
     def forward(self, features: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
@@ -122,10 +134,14 @@ class MGNetHead(nn.Module):
     """3x3 conv-ABN -> 1x1 bias-free predictor conv."""
 
     def __init__(self, in_channels: int, head_channels: int,
-                 num_classes: int):
+                 num_classes: int, init_method: str = "xavier"):
         super().__init__()
-        self.head = ConvABN(in_channels, head_channels, 3)
-        self.predictor = nn.Conv2d(head_channels, num_classes, 1, bias=False)
+        self.head = ConvABN(in_channels, head_channels, 3,
+                            init_method=init_method)
+        self.predictor = recorded(
+            nn.Conv2d(head_channels, num_classes, 1, bias=False),
+            "mgnet_xavier_init" if init_method == "xavier"
+            else "lecun_normal")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.predictor(self.head(x))
@@ -144,10 +160,12 @@ class PoseCNN(nn.Module):
         self.encoder = ResNetABN(depth=depth,
                                  in_channels=3 * (num_context_images + 1),
                                  out_features=("res5",), remat=remat)
-        self.conv1 = nn.Conv2d(512, 256, 1)
-        self.conv2 = nn.Conv2d(256, 256, 3, padding=1)
-        self.conv3 = nn.Conv2d(256, 256, 3, padding=1)
-        self.conv4 = nn.Conv2d(256, 6 * num_context_images, 1)
+        for i, (c_in, c_out, k) in enumerate(
+                ((512, 256, 1), (256, 256, 3), (256, 256, 3),
+                 (256, 6 * num_context_images, 1)), 1):
+            self.add_module(f"conv{i}", recorded(
+                nn.Conv2d(c_in, c_out, k, padding=k // 2),
+                "mgnet_xavier_init"))
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         y = self.encoder(images)["res5"]

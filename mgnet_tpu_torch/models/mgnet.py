@@ -38,7 +38,7 @@ float32 and casts back to its input's dtype, as the JAX package's
 
 from __future__ import annotations
 
-import math
+import functools
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -46,7 +46,7 @@ from torch import nn
 
 from mgnet_tpu_torch.geometry.depth import inv2depth
 from mgnet_tpu_torch.geometry.image import interpolate_bilinear_cf
-from mgnet_tpu_torch.models.abn import ABN, checkpoint_once
+from mgnet_tpu_torch.models.abn import ABN, checkpoint_once, init_conv_
 from mgnet_tpu_torch.models.layers import (
     GlobalContextModule,
     MGNetDecoder,
@@ -57,6 +57,11 @@ from mgnet_tpu_torch.models.resnet import ResNetABN
 
 __all__ = ["MGNet", "SemSegHead", "InsEmbedHead", "DepthHead", "build_model",
            "init_random_"]
+
+# each branch's INIT_METHOD when the constructor is given none: the
+# config's defaults, which are the JAX modules' own
+INIT_METHODS = {"gcm": "xavier", "sem_seg": "xavier", "ins_embed": "xavier",
+                "depth": "default"}
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -72,12 +77,14 @@ def _upsample(x: torch.Tensor, stride: int) -> torch.Tensor:
 class SemSegHead(nn.Module):
     def __init__(self, in_channels, num_classes, arm_channels,
                  refine_channels, ffm_channels, head_channels,
-                 common_stride=8):
+                 common_stride=8, init_method="xavier"):
         super().__init__()
         self.common_stride = common_stride
         self.decoder = MGNetDecoder(in_channels, arm_channels,
-                                    refine_channels, ffm_channels)
-        self.head = MGNetHead(ffm_channels, head_channels, num_classes)
+                                    refine_channels, ffm_channels,
+                                    init_method)
+        self.head = MGNetHead(ffm_channels, head_channels, num_classes,
+                              init_method)
 
     def forward(self, features, upsample: bool = False):
         y, _ = self.decoder(features)
@@ -90,13 +97,17 @@ class InsEmbedHead(nn.Module):
     upsampled with the offsets in output pixels."""
 
     def __init__(self, in_channels, arm_channels, refine_channels,
-                 ffm_channels, head_channels, common_stride=8):
+                 ffm_channels, head_channels, common_stride=8,
+                 init_method="xavier"):
         super().__init__()
         self.common_stride = common_stride
         self.decoder = MGNetDecoder(in_channels, arm_channels,
-                                    refine_channels, ffm_channels)
-        self.center_head = MGNetHead(ffm_channels, head_channels, 1)
-        self.offset_head = MGNetHead(ffm_channels, head_channels, 2)
+                                    refine_channels, ffm_channels,
+                                    init_method)
+        self.center_head = MGNetHead(ffm_channels, head_channels, 1,
+                                     init_method)
+        self.offset_head = MGNetHead(ffm_channels, head_channels, 2,
+                                     init_method)
 
     def forward(self, features, upsample: bool = False):
         y, _ = self.decoder(features)
@@ -117,16 +128,19 @@ class DepthHead(nn.Module):
 
     def __init__(self, in_channels, arm_channels, refine_channels,
                  ffm_channels, head_channels, common_stride=8,
-                 msc_heads: bool = False):
+                 msc_heads: bool = False, init_method="default"):
         super().__init__()
         self.common_stride = common_stride
         self.msc_heads = msc_heads
         self.decoder = MGNetDecoder(in_channels, arm_channels,
-                                    refine_channels, ffm_channels)
-        self.head0 = MGNetHead(ffm_channels, head_channels, 1)
+                                    refine_channels, ffm_channels,
+                                    init_method)
+        self.head0 = MGNetHead(ffm_channels, head_channels, 1, init_method)
         if msc_heads:
-            self.head1 = MGNetHead(arm_channels[1], head_channels, 1)
-            self.head2 = MGNetHead(arm_channels[0], head_channels, 1)
+            self.head1 = MGNetHead(arm_channels[1], head_channels, 1,
+                                   init_method)
+            self.head2 = MGNetHead(arm_channels[0], head_channels, 1,
+                                   init_method)
 
     def _inv_depth(self, head, f, size):
         d = torch.sigmoid(head(f)) / 0.5
@@ -167,7 +181,8 @@ class MGNet(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  for_training: bool = False, msc_depth_loss: bool = True,
                  with_panoptic: bool = True, with_depth: bool = True,
-                 remat: bool = False):
+                 remat: bool = False,
+                 init_methods: Optional[Dict[str, str]] = None):
         super().__init__()
         if not (with_panoptic or with_depth):
             raise ValueError("MGNet needs at least one task branch")
@@ -176,20 +191,25 @@ class MGNet(nn.Module):
         self.with_panoptic = with_panoptic
         self.with_depth = with_depth
         self.remat = remat
+        init = {**INIT_METHODS, **(init_methods or {})}
         self.backbone = ResNetABN(depth=depth, remat=remat)
         in_ch = {"res3": 128, "res4": 256, "res5": 512}
         self.global_context = GlobalContextModule(in_ch["res5"],
-                                                  gcm_channels)
+                                                  gcm_channels, init["gcm"])
         common = dict(in_channels=in_ch, arm_channels=tuple(arm_channels),
                       refine_channels=tuple(refine_channels),
                       ffm_channels=ffm_channels, head_channels=head_channels,
                       common_stride=common_stride)
         if with_panoptic:
-            self.sem_seg_head = SemSegHead(num_classes=num_classes, **common)
-            self.ins_embed_head = InsEmbedHead(**common)
+            self.sem_seg_head = SemSegHead(num_classes=num_classes,
+                                           init_method=init["sem_seg"],
+                                           **common)
+            self.ins_embed_head = InsEmbedHead(init_method=init["ins_embed"],
+                                               **common)
         if with_depth:
             self.depth_head = DepthHead(
-                msc_heads=for_training and msc_depth_loss, **common)
+                msc_heads=for_training and msc_depth_loss,
+                init_method=init["depth"], **common)
             if for_training:
                 self.pose_net = PoseCNN(depth=depth, remat=remat)
 
@@ -286,6 +306,10 @@ def build_model(cfg, device="cuda", for_training: bool = False) -> MGNet:
         with_panoptic=cfg.WITH_PANOPTIC,
         with_depth=cfg.WITH_DEPTH,
         remat=cfg.MODEL.REMAT,
+        init_methods={"gcm": cfg.MODEL.GCM.INIT_METHOD,
+                      "sem_seg": h.INIT_METHOD,
+                      "ins_embed": cfg.MODEL.INS_EMBED_HEAD.INIT_METHOD,
+                      "depth": cfg.MODEL.DEPTH_HEAD.INIT_METHOD},
     )
     model = model.to(device)
     return model.train() if for_training else model.eval()
@@ -293,20 +317,39 @@ def build_model(cfg, device="cuda", for_training: bool = False) -> MGNet:
 
 @torch.no_grad()
 def init_random_(module: nn.Module, generator: torch.Generator) -> None:
-    """Draw conv weights from N(0, 1/fan_in) (the JAX package's
-    ``mgnet_xavier_init``) with ``generator``, zero conv biases, and reset
-    ABN to its identity (scale 1, bias 0, mean 0, var 1). ``generator``
-    must live on the parameters' device."""
+    """Draw each conv's kernel by the rule it records (``models.abn``: the
+    JAX package's initializer of that conv) with ``generator``, zero conv
+    biases, and reset ABN to its identity (scale 1, bias 0, mean 0, var
+    1). ``generator`` must live on the parameters' device."""
     for m in module.modules():
         if isinstance(m, nn.Conv2d):
-            fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
-            w = torch.randn(m.weight.shape, generator=generator,
-                            device=m.weight.device)
-            m.weight.copy_(w / math.sqrt(fan_in))
-            if m.bias is not None:
-                m.bias.zero_()
+            init_conv_(m, generator)
         elif isinstance(m, ABN):
             m.weight.fill_(1.0)
             m.bias.zero_()
             m.running_mean.zero_()
             m.running_var.fill_(1.0)
+
+
+def as_float64_(model: MGNet) -> MGNet:
+    """Turn ``model`` into its float64 reference, in place: parameters and
+    buffers in float64, and ``forward`` and ``forward_train`` casting their
+    floating inputs to float64. A float32 run is held to it where two
+    float32 runs may differ by rounding alone. The losses and the kernels
+    stay float32, as they cast their inputs, and so do the outputs that
+    the model casts to float32 (inverse depths, poses): one rounding at
+    the end. Returns ``model``."""
+    model.double()
+    model.dtype = torch.float64
+    for name in ("forward", "forward_train"):
+        setattr(model, name, functools.partial(_in_float64,
+                                               getattr(model, name)))
+    return model
+
+
+def _in_float64(fn, *args, **kwargs):
+    def cast(x):
+        return x.double() if torch.is_tensor(x) and x.is_floating_point() \
+            else x
+
+    return fn(*map(cast, args), **{k: cast(v) for k, v in kwargs.items()})

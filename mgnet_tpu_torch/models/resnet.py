@@ -5,9 +5,10 @@ conv-ABN + 3x3/s2 max pool), BasicBlocks with leaky-ABN conv1,
 identity-ABN conv2 and shortcut, residual add then ReLU; stages res2..res5
 at strides 4/8/16/32. The stem is a plain ``Conv2d(padding=3)``: the JAX
 space-to-depth form (``resnet.py:63-104``) is a TPU layout trick over the
-same variable tree. With ``remat`` each residual block runs under
-``checkpoint_once`` while gradients are on (``mgnet_tpu/models/resnet.py:
-175-186``).
+same variable tree. Every conv draws from ``kaiming_normal_fan_out``
+(``"msra"``; the stem's ``"default"``), as the JAX encoder's. With
+``remat`` each residual block runs under ``checkpoint_once`` while
+gradients are on (``mgnet_tpu/models/resnet.py:175-186``).
 """
 
 from __future__ import annotations
@@ -37,12 +38,13 @@ class BasicStem(nn.Module):
 class BasicBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, stride: int = 1):
         super().__init__()
-        self.conv1 = ConvABN(in_channels, out_channels, 3, stride=stride)
+        self.conv1 = ConvABN(in_channels, out_channels, 3, stride=stride,
+                             init_method="msra")
         self.conv2 = ConvABN(out_channels, out_channels, 3,
-                             activation="identity")
+                             activation="identity", init_method="msra")
         self.shortcut = (
             ConvABN(in_channels, out_channels, 1, stride=stride,
-                    activation="identity")
+                    activation="identity", init_method="msra")
             if in_channels != out_channels else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

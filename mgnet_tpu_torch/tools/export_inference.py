@@ -16,9 +16,13 @@ as the ``ExportedProgram`` ``--output`` plus the AOTInductor package
 beside it (``model.aoti.pt2``), which ``export.load_exported`` and the C++
 runner (``export/csrc/aoti_runner.cpp``) load.
 
-``--verify`` reloads the package and holds it, on a seeded image with a
-Cityscapes camera, to the live frame on the same device at
-``export.BARS`` of the model's compute dtype.
+``--verify`` runs the live frame on a seeded image with a Cityscapes camera
+on the same device, then holds to it, in this order: the reloaded
+``ExportedProgram`` bit for bit on every key (the same ATen ops, as the
+JAX tool holds its artifact to the live jit, ``tools/export_inference.py:
+112-136``), and the AOTInductor package, which is other code, at
+``export.BARS`` of the model's compute dtype. It prints both results and
+raises at the first that fails.
 """
 
 from __future__ import annotations
@@ -39,9 +43,11 @@ from mgnet_tpu_torch.data import (
 )
 from mgnet_tpu_torch.export import (
     BARS,
+    compare_exact,
     compare_outputs,
     export_fused_inference,
     load_exported,
+    load_program,
     save_exported,
 )
 from mgnet_tpu_torch.inference import build_fused_inference, statics_from_meta
@@ -61,8 +67,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--height", type=int, default=1024)
     p.add_argument("--width", type=int, default=2048)
     p.add_argument("--verify", action="store_true",
-                   help="after export: reload the package and hold it to "
-                        "the live frame on --device")
+                   help="after export: hold the reloaded ExportedProgram "
+                        "to the live frame on --device bit for bit, then "
+                        "the package at export.BARS")
     p.add_argument("--device", default="cuda")
     p.add_argument("opts", nargs=argparse.REMAINDER)
     return p.parse_args(argv)
@@ -116,8 +123,12 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     if args.verify:
         inputs = verify_inputs(args.height, args.width, device)
-        got = load_exported(args.output)(*inputs)
         want = frame(*inputs)
+        counted = compare_exact(load_program(args.output)(*inputs), want)
+        print(f"EXACT OK on {device}: the ExportedProgram equals the live "
+              f"frame bit for bit on every key ({sum(counted.values())} "
+              f"values of {', '.join(counted)})")
+        got = load_exported(args.output)(*inputs)
         bars = BARS[model.dtype]
         found = compare_outputs(got, want, statics, *bars)
         print(f"PARITY OK on {device}: the package matches the live frame "

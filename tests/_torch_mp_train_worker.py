@@ -36,7 +36,7 @@ from mgnet_tpu_torch.losses import (
     offset_loss,
     ohem_ce_loss,
 )
-from mgnet_tpu_torch.models import build_model
+from mgnet_tpu_torch.models import as_float64_, build_model
 from mgnet_tpu_torch.models.abn import ABN
 from mgnet_tpu_torch.parallel import (
     initialize_distributed,
@@ -94,20 +94,24 @@ def _tensors(batch):
             for k, v in batch.items()}
 
 
-def step_state(cfg, state_dict, device="cpu"):
+def step_state(cfg, state_dict, device="cpu", float64=False):
     model = build_model(cfg, device="cpu", for_training=True)
+    if float64:
+        as_float64_(model)
     state = create_train_state(cfg, model.to(device))
     state.params.load_state_dict(state_dict)
     return state
 
 
 def step_case(state_dict, accum: int, remat: bool, rank: int, world: int,
-              device="cpu"):
+              device="cpu", float64=False):
     """One training step from ``state_dict`` on this rank's part of the
     global batch: the metrics, the (averaged) gradients, the BN running
-    statistics and every parameter and buffer after it, on the CPU."""
+    statistics and every parameter and buffer after it, on the CPU. With
+    ``float64`` the model runs as its float64 reference
+    (``models.as_float64_``)."""
     cfg = step_config(accum, remat)
-    state = step_state(cfg, state_dict, device)
+    state = step_state(cfg, state_dict, device, float64)
     batch = {k: v.to(device) for k, v in shard_batch(
         _tensors(step_batch(accum)), accum, rank, world).items()}
     _, metrics = make_train_step(cfg)(state, batch)

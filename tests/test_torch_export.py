@@ -12,8 +12,9 @@ flax-initialised weights, the same JAX frame), with and without a camera:
 * the serialized bytes round-trip through ``torch.export.load``.
 Then one AOTInductor round trip through the port's ``export_inference
 --device cpu --verify`` at 1x64x128 on the same weights (a
-``model_final`` written by ``save_params``): the tool's own check of the
-package against the live frame (Inductor's fused code rounds differently
+``model_final`` written by ``save_params``): the tool's own checks, the
+reloaded program against the live frame bit for bit, then the package
+against the live frame (Inductor's fused code rounds differently
 from eager, so at the float32 bars of ``export.BARS``), the package's one
 proxy call of ``mgnet::center_argmin`` and its ``output_keys`` metadata,
 and the package against the exported program it was compiled from at
@@ -174,6 +175,20 @@ def test_export_inference_writes_and_verifies_on_the_cpu(aoti):
     assert f"Loaded {output.parent / 'model_final'}" in printed
     assert f"Wrote {output} ({output.stat().st_size} bytes)" in printed
     assert "PARITY OK on cpu" in printed
+
+
+def test_export_inference_holds_the_program_exactly_before_the_package(aoti):
+    """--verify's first step: the reloaded ExportedProgram equals the live
+    frame bit for bit on every key; only then the package at BARS."""
+    lines = aoti[1].splitlines()
+    exact = [i for i, ln in enumerate(lines) if ln.startswith("EXACT OK")]
+    parity = [i for i, ln in enumerate(lines) if ln.startswith("PARITY OK")]
+    assert len(exact) == len(parity) == 1 and exact[0] < parity[0]
+    # one image: 2 offset and 3 point channels, one value of each other key
+    assert lines[exact[0]] == (
+        f"EXACT OK on cpu: the ExportedProgram equals the live frame bit "
+        f"for bit on every key ({9 * H * W} values of center, depth, "
+        f"offset, panoptic, points, sem_seg)")
 
 
 def test_package_calls_center_argmin_once_through_the_proxy(aoti):

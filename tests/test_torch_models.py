@@ -179,3 +179,48 @@ def test_mgnet_eval_outputs():
         np.testing.assert_allclose(ot[k].numpy(), np.asarray(out[k]),
                                    atol=ATOL, rtol=RTOL,
                                    err_msg=f"activation drift in {k}")
+
+
+@pytest.mark.parametrize("for_training", [False, True])
+def test_float64_reference_is_the_model_in_float64(for_training):
+    """models.as_float64_ on a copy: every parameter and buffer in float64
+    (the model it was copied from stays float32), forward or forward_train
+    taking float32 frames, and each output within 1e-4 (norm-wise) of the
+    float32 model's; the outputs the model casts to float32 (inverse
+    depths, poses) stay float32, the rest are float64."""
+    import copy
+
+    from mgnet_tpu_torch.config import get_default_config
+    from mgnet_tpu_torch.models import as_float64_, build_model, init_random_
+
+    cfg = get_default_config()
+    cfg.MODEL.COMPUTE_DTYPE = "float32"
+    cfg.MODEL.GCM.GCM_CHANNELS = 32
+    h = cfg.MODEL.SEM_SEG_HEAD
+    h.ARM_CHANNELS, h.REFINE_CHANNELS = [32, 32], [32, 32]
+    h.FFM_CHANNELS, h.HEAD_CHANNELS = 48, 32
+    model = build_model(cfg, device="cpu", for_training=for_training)
+    init_random_(model, torch.Generator().manual_seed(0))
+    ref = as_float64_(copy.deepcopy(model))
+    rng = np.random.RandomState(0)
+    frames = [torch.from_numpy(rng.randn(2, 64, 128, 3).astype(np.float32))
+              for _ in range(3 if for_training else 1)]
+    with torch.no_grad():
+        run = "forward_train" if for_training else "forward"
+        got, want = (getattr(m, run)(*frames) for m in (model, ref))
+    assert {t.dtype for t in ref.state_dict().values()
+            if t.is_floating_point()} == {torch.float64}
+    assert {t.dtype for t in model.state_dict().values()
+            if t.is_floating_point()} == {torch.float32}
+    if for_training:
+        for out in (got, want):
+            out.update({f"inv_depths/{i}": d
+                        for i, d in enumerate(out.pop("inv_depths"))})
+    assert set(got) == set(want)
+    for key, w in want.items():
+        kept = key.startswith(("inv_depth", "depth", "poses"))
+        assert w.dtype == (torch.float32 if kept else torch.float64), key
+        err = float((got[key].double() - w.double()).norm()
+                    / w.double().norm())
+        assert err < 1e-4, (key, err)
+

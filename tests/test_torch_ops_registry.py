@@ -261,3 +261,30 @@ def test_compare_outputs_holds_each_bar(change, fails):
     # one value off in 64 passes a bar of 0.98 of the values
     if change == "values":
         compare_outputs(got, want, STATICS, 0.999, 1e-4, 1e-4, 0.98)
+
+
+@pytest.mark.parametrize("change,missed", [
+    ("labels", {"sem_seg": 0.75, "panoptic fusion": 0.71875}),
+    ("panoptic", {"panoptic classes": 0.75, "panoptic fusion": 0.75}),
+    ("values", {"depth": 0.984375}),
+    ("nan", {"points NaN": None, "points": 191 / 192}),
+])
+def test_compare_outputs_names_the_bars_it_missed(change, missed):
+    """BarsMissed, an AssertionError, maps each bar missed to the share
+    found (None for NaN at other pixels), and carries the whole result."""
+    from mgnet_tpu_torch.export import BarsMissed
+
+    want = _frame_outputs()
+    got = {k: v.clone() for k, v in want.items()}
+    if change == "labels":
+        got["sem_seg"][0, :2] = (got["sem_seg"][0, :2] + 1) % 4
+    elif change == "panoptic":
+        got["panoptic"][0, :2] += 1000
+    elif change == "values":
+        got["depth"][0, 5, 5] += 0.5
+    else:
+        got["points"][0, 3, 3, 0] = float("nan")
+    with pytest.raises(BarsMissed) as e:
+        compare_outputs(got, want, STATICS, 0.999, 1e-4, 1e-4, 1.0)
+    assert e.value.missed == missed
+    assert set(e.value.found) == {"agree", "within", "max_abs"}
