@@ -132,10 +132,11 @@ Phases, each printing its findings:
      it held to bar (iii) (DIST_*), the ranks' parameters equal bit for
      bit, and in each rank the last warp, SSIM forward and backward call
      held to its plain version bit for bit; (b) the same two ranks take
-     one bf16 step each at 1024x1024, global batch 4, launches checked
-     (warp 6, SSIM forward 8, backward 6 a step) -- two ranks sharing one
-     card; (c) train_net --num-devices <cards> over NCCL on the trainer
-     tree, 2 iterations and a resume of 1: rank-0-only files, the resumed
+     one bf16 step each at 1024x1024, global batch 4, as MESH.DATA 2, then
+     one more as copies of one data shard (DATA 1 x MODEL 2, each rank the
+     whole batch), launches checked (warp 6, SSIM forward 8, backward 6 a
+     step) -- two ranks sharing one card; (c) train_net --num-devices
+     <cards> over NCCL on the trainer tree, 2 iterations and a resume of 1: rank-0-only files, the resumed
      state equal to its checkpoint (with 2 or more cards, (a) again over
      NCCL across 2 cards); (d) phase 6's world-size-1 step called no
      collective and launched within PARENT_LAUNCHES kernels a step;
@@ -150,7 +151,10 @@ Phases, each printing its findings:
      timed in turns; the C++ runner (export/csrc/aoti_runner.cpp, built by
      ops._build.build_runner) on the same package and image: its latency
      line, its FNV-1a of the panoptic output equal to the Python
-     package's, one center_argmin launch a frame; then
+     package's, one center_argmin launch a frame; the eager frame and the
+     package each against the frame of a float64 copy of the model
+     (labels' agreement, shares within the bf16 bar's tolerance; printed,
+     ROADMAP Queue 3 item 2); then
      tools.export_inference --verify on the trainer's model_final at
      256x512 in float32: the reloaded ExportedProgram equal to the live
      frame bit for bit, then the package at export.BARS;
@@ -164,9 +168,24 @@ Phases, each printing its findings:
      gate, PQ > 80 and mIoU > 80, must pass); meanwhile a child process
      runs tools.export_inference --verify in bfloat16 on the trainer's
      model_final at 256x512: its program must equal the live frame bit
-     for bit, and its package hold export.BARS or miss no more than the
-     open fault that BF16_OPEN_FAULT records;
-  14. a JSON line of kernel numbers (with each path's launches), the total
+     for bit, its FLOAT64 line (printed by the child around the tool)
+     give the live frame's and the package's shares against the float64
+     frame, and its package hold export.BARS
+     or miss no more than the open fault that BF16_OPEN_FAULT records;
+  14. the runbook and tools, while that child still compiles:
+     tools.run_pipeline --smoke --stages prepare,init,train,eval on the
+     card in a subprocess started with phase 13 (PIPELINE OK,
+     model_final, metrics.json, awaited at the end); meanwhile each bench
+     and profile tool through its main at its smallest setting
+     (TOOL_*): bench_train (6 / 8 / 6 launches a step), profile_train
+     (its ledger summing to its step; no warp under the surrogate warp,
+     no SSIM kernel under the L1 residual, none without depth),
+     bench_eval_loop (one center_argmin a device batch),
+     profile_postproc (with --trace: device time in the table),
+     profile_inference (frame and TTA), profile_fused_roofline (one
+     center_argmin a frame with fusion, none without), profile_model,
+     bench_mapper and bench_dataloader (host);
+  15. a JSON line of kernel numbers (with each path's launches), the total
      elapsed seconds, nvidia-smi's line, and as the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -232,6 +251,7 @@ from mgnet_tpu_torch.export import (
     BarsMissed,
     compare_outputs,
     export_fused_inference,
+    float64_shares,
     fnv1a64,
     load_exported,
     save_exported,
@@ -276,11 +296,13 @@ from mgnet_tpu_torch.ops.ssim import (
 )
 from mgnet_tpu_torch.ops.warp import warp_bilinear, warp_bilinear_reference
 from mgnet_tpu_torch.parallel import (
+    data_parallel_size,
     initialize_distributed,
     replicate_,
     shard_batch,
     shutdown_distributed,
 )
+from mgnet_tpu_torch.parallel.multihost import set_model_axis
 from mgnet_tpu_torch.parallel.collectives import CALLS as COLLECTIVES
 from mgnet_tpu_torch.postprocessing.panoptic import (
     find_instance_centers,
@@ -288,9 +310,18 @@ from mgnet_tpu_torch.postprocessing.panoptic import (
 )
 from mgnet_tpu_torch.tools import (
     bench,
+    bench_dataloader,
+    bench_eval_loop,
+    bench_mapper,
+    bench_train,
     demo,
     export_inference,
     generate_pseudo_labels,
+    profile_fused_roofline,
+    profile_inference,
+    profile_model,
+    profile_postproc,
+    profile_train,
     train_net,
     validate_depth_overfit,
     validate_overfit,
@@ -300,7 +331,7 @@ from mgnet_tpu_torch.train.step import normalize_images
 from mgnet_tpu_torch.train.trainer import Trainer, evaluate_dataset
 from mgnet_tpu_torch.utils import load_jax_params
 from mgnet_tpu_torch.utils.checkpoint import CheckpointManager
-from mgnet_tpu_torch.utils.profiling import steady_state_timer
+from mgnet_tpu_torch.utils.profiling import host_ms
 
 ROOT = Path(__file__).resolve().parent
 H, W, K = 1024, 2048, 128
@@ -408,6 +439,21 @@ PANOPTIC_KEYS = ["PQ", "SQ", "RQ", "PQ_th", "SQ_th", "RQ_th", "PQ_st",
                  "SQ_st", "RQ_st"]
 DEPTH_KEYS = ["Abs Rel", "Sq Rel", "RMSE", "RMSE log", "δ < 1.25",
               "δ < 1.25²", "δ < 1.25³"]
+# the runbook and tools phase: run_pipeline --smoke with these stages,
+# then each bench and profile tool once at its smallest setting
+RUNBOOK_STAGES = "prepare,init,train,eval"
+TOOL_TRAIN = ("--batch", "2", "--size", "256", "--iters", "2")
+TOOL_PROFILE_TRAIN = ("--batch", "2", "--size", "256", "--iters", "2",
+                      "--roofline")
+TOOL_EVAL = ("--images", "2", "--height", "256", "--width", "512",
+             "--batch", "2", "--workers", "0")
+TOOL_POSTPROC = ("--iters", "5")
+TOOL_INFERENCE = ("--height", "256", "--width", "512", "--iters", "3")
+TOOL_ROOFLINE = ("--height", "256", "--width", "512", "--iters", "5")
+TOOL_MODEL = ("--h", "256", "--w", "512", "--iters", "5")
+TOOL_MAPPER = ("--height", "512", "--width", "1024", "--iters", "1")
+TOOL_DATALOADER = ("--height", "512", "--width", "1024", "--iters", "2",
+                   "--threads", "1,8")
 SEED = 0
 DEVICE = "cuda"
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 FLOP/s (an
@@ -1789,8 +1835,8 @@ def phase_trainer(smi, root: Path):
     # came: PERF.md, calls R4 and R5)
     step, batch = make_train_step(resumed.cfg), resume_steps[-1][2]
     cores = len(os.sched_getaffinity(0))
-    step_ms = steady_state_timer(step, (resumed.state, batch), warmup=1,
-                                 iters=STEP_ITERS) * 1e3
+    step_ms = host_ms(lambda: step(resumed.state, batch), STEP_ITERS,
+                      warmup=1)
     del resumed, resume_steps, batch
     if DEVICE != "cpu":
         torch.cuda.empty_cache()
@@ -2079,9 +2125,10 @@ def phase_eval(smi, root: Path):
     return launches
 
 
-def host_ms(fn, *args, **kwargs):
-    """(fn's result, host ms of the call with the card synchronised after
-    it)."""
+def timed_call(fn, *args, **kwargs):
+    """(fn's result, host ms of one call with the card synchronised
+    before and after it): one call whose result is kept, where
+    utils.profiling.host_ms averages repeated calls."""
     sync()
     t0 = time.perf_counter()
     out = fn(*args, **kwargs)
@@ -2143,7 +2190,7 @@ def serve_predictor(smi, root: Path):
     call_ms = []
     for i, img in enumerate(images[:3]):
         center_argmin.launches = 0
-        out, ms = host_ms(pred, img)
+        out, ms = timed_call(pred, img)
         n = center_argmin.launches
         launches["predictor"] += n
         call_ms.append(ms)
@@ -2156,14 +2203,14 @@ def serve_predictor(smi, root: Path):
         same_outputs(f"Predictor call {i}",
                      out, {k: v[0].cpu().numpy() for k, v in want.items()})
     # one call's host stages: resize, copy in, frame, copy out
-    (resized, K_, height), resize_ms = host_ms(pred.prepare, images[0])
-    image_dev, copy_in_ms = host_ms(
+    (resized, K_, height), resize_ms = timed_call(pred.prepare, images[0])
+    image_dev, copy_in_ms = timed_call(
         lambda: torch.from_numpy(resized[None]).to(DEVICE))
     cam = (torch.from_numpy(K_[None]).to(DEVICE),
            torch.tensor([height], device=DEVICE))
-    out, frame_ms = host_ms(direct, image_dev, *cam)
-    _, copy_out_ms = host_ms(lambda: {k: v[0].cpu().numpy()
-                                      for k, v in out.items()})
+    out, frame_ms = timed_call(direct, image_dev, *cam)
+    _, copy_out_ms = timed_call(lambda: {k: v[0].cpu().numpy()
+                                         for k, v in out.items()})
     log(f"[serve] Predictor ({cfg.MODEL.COMPUTE_DTYPE}, model_final, the "
         f"tree's camera) on {len(call_ms)} frames of {images[0].shape[0]}x"
         f"{images[0].shape[1]}: outputs {list(out)} equal the frame called "
@@ -2174,10 +2221,11 @@ def serve_predictor(smi, root: Path):
 
     batch = np.stack([pred.prepare(img)[0] for img in images])
     center_argmin.launches = 0
-    full, full_ms = host_ms(pred.predict_batch, batch)
-    only, only_ms = host_ms(pred.predict_batch, batch, outputs=("panoptic",))
-    lazy, lazy_ms = host_ms(pred.predict_batch, batch, outputs=("panoptic",),
-                            materialize=False)
+    full, full_ms = timed_call(pred.predict_batch, batch)
+    only, only_ms = timed_call(pred.predict_batch, batch,
+                               outputs=("panoptic",))
+    lazy, lazy_ms = timed_call(pred.predict_batch, batch,
+                               outputs=("panoptic",), materialize=False)
     launches["predict_batch"] = center_argmin.launches
     if launches["predict_batch"] != 3:
         raise AssertionError(f"predict_batch: {launches['predict_batch']} "
@@ -2227,7 +2275,7 @@ def serve_tools(smi, root: Path, frames, camera, model_final):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     center_argmin.launches = 0
-    out, ms = host_ms(ppred, img)
+    out, ms = timed_call(ppred, img)
     launches["pseudo-label-predictor"] = center_argmin.launches
     h, w = ppred.prepare(img)[0].shape[:2]
     shapes = {k: v.shape for k, v in out.items()}
@@ -2421,6 +2469,21 @@ def run_runner(smi, pkg: Path, image: torch.Tensor, want_fnv: int):
     return launches
 
 
+def log_float64_shares(tag, frame, inputs, want, got, bars):
+    """The eager bf16 ``frame``'s outputs ``want`` and the package's
+    ``got``, each held to the same frame with a float64 copy of its model
+    (export.float64_shares) on the same ``inputs``, at the bars'
+    tolerance: the labels' agreement and each continuous output's share
+    within it. Printed, not gated (ROADMAP Queue 3 item 2)."""
+    found = float64_shares(frame, {"eager": want, "package": got}, inputs,
+                           *bars[1:3])
+    for name, f in found.items():
+        log(f"[{tag}] float64 reference: the {name} bf16 frame's labels "
+            f"equal on {f['agree']}; within {bars[1]} abs + {bars[2]} "
+            f"rel of float64: {f['within']}")
+    torch.cuda.empty_cache()
+
+
 def export_verify(smi, out: Path, model_final: str) -> int:
     """tools.export_inference --verify on the trainer's model_final at a
     reduced size, in float32 (TF32 off, as phase 1 set it): the reloaded
@@ -2491,6 +2554,7 @@ def phase_export(smi, root: Path):
     first = center_argmin.launches
     want = frame(*inputs)
     bars = BARS[torch.bfloat16]
+    log_float64_shares("export", frame, inputs, want, got, bars)
     try:
         found = compare_outputs(got, want, frame.statics, *bars)
     except BarsMissed as e:
@@ -2604,20 +2668,33 @@ def dist_equal_steps(device, rank: int, world: int):
 
 def dist_bf16_step(device, rank: int, world: int):
     """One bf16 Fine step, untimed, on this rank's part of the global batch
-    of DIST_B at the recipe's 1024x1024: its kernel launches, checked
-    against expected_launches(cfg), and its loss finite."""
+    of DIST_B at the recipe's 1024x1024, then one more with the ranks as
+    copies of one data shard (MESH.DATA 1 x MESH.MODEL world: each rank
+    holds the whole global batch): the kernel launches of each, checked
+    against expected_launches(cfg), and their losses finite."""
     cfg = train_config("bfloat16")
     state = build_train(cfg, device)
     replicate_(state.params)
-    batch = shard_batch(train_batch(DIST_B, TH, TW, device), 1, rank, world)
-    reset_counts()
-    _, m = make_train_step(cfg)(state, batch)
-    torch.cuda.synchronize()
-    launches, want = counts(), expected_launches(cfg)
-    if launches != want or not np.isfinite(float(m["loss_total"])):
-        raise AssertionError(f"rank {rank} bf16 step: launches {launches} "
-                             f"(expected {want}), loss_total "
-                             f"{float(m['loss_total'])}")
+    batch = train_batch(DIST_B, TH, TW, device)
+    step = make_train_step(cfg)
+    launches = []
+    for model_axis in (1, world):
+        cfg.MESH.MODEL = model_axis
+        set_model_axis(model_axis)
+        data_parallel_size(cfg)
+        try:
+            reset_counts()
+            _, m = step(state, shard_batch(batch))
+            torch.cuda.synchronize()
+        finally:
+            set_model_axis(1)
+        launches.append(counts())
+        want = expected_launches(cfg)
+        if launches[-1] != want or not np.isfinite(float(m["loss_total"])):
+            raise AssertionError(
+                f"rank {rank} bf16 step at MESH.MODEL {model_axis}: "
+                f"launches {launches[-1]} (expected {want}), loss_total "
+                f"{float(m['loss_total'])}")
     return launches
 
 
@@ -2783,10 +2860,11 @@ def phase_distribution(smi, root: Path, world1):
     """Data-parallel training on the card: (a) DIST_RANKS gloo ranks on
     the one card against one rank in this process, f32, bar (iii), every
     kernel call kept in each rank bit for bit; (b) the same ranks take one
-    bf16 step at 1024x1024, its launches checked (the timing of those
-    steps was measured until the validation phase came: PERF.md, calls
-    U2-U4); (c) train_net over NCCL on every visible card (with 2 or more,
-    (a) again over NCCL across 2 cards); (d) phase 6's world-size-1 step
+    bf16 step at 1024x1024, then one as copies of one data shard
+    (MESH.DATA 1 x MODEL 2), each step's launches checked (the timing of
+    those steps was measured until the validation phase came: PERF.md,
+    calls U2-U4); (c) train_net over NCCL on every visible card (with 2 or
+    more, (a) again over NCCL across 2 cards); (d) phase 6's world-size-1 step
     called no collective and launched within PARENT_LAUNCHES. Returns the
     kernels' launches by path."""
     t0 = time.perf_counter()
@@ -2799,7 +2877,9 @@ def phase_distribution(smi, root: Path, world1):
         check_dist_equal("dist-gloo-one-card", [r["equal"] for r in ranks],
                          ref)
         log(f"[dist-bf16] {DIST_RANKS} gloo ranks SHARING ONE CARD, one bf16 "
-            f"Fine step each at global batch {DIST_B} of {TH}x{TW}: launches "
+            f"Fine step each at global batch {DIST_B} of {TH}x{TW} as "
+            f"MESH.DATA {DIST_RANKS} x MODEL 1, then as DATA 1 x MODEL "
+            f"{DIST_RANKS} (each rank the whole batch): launches "
             f"{[r['bf16'] for r in ranks]}; {smi}")
         if cards >= 2:
             nccl = spawn_ranks("nccl", [0, 1], Path(tmp) / "nccl")
@@ -2818,7 +2898,8 @@ def phase_distribution(smi, root: Path, world1):
     paths = {"dist-one-rank": ref["launches"]}
     for r, x in enumerate(ranks):
         paths[f"dist-gloo-rank{r}"] = x["equal"]["launches"]
-        paths[f"dist-bf16-rank{r}"] = x["bf16"]
+        paths[f"dist-bf16-rank{r}"], paths[f"dist-bf16-model2-rank{r}"] = \
+            x["bf16"]
     if cli is not None:
         paths.update({"dist-cli-nccl": cli, "dist-cli-nccl-resume":
                       cli_resume})
@@ -2826,17 +2907,38 @@ def phase_distribution(smi, root: Path, world1):
 
 
 # export_inference --verify in a child process, with the center_argmin
-# launches of its three frames (live, reloaded program, package) printed
-# at its end whatever its outcome; where the package misses export.BARS it
-# prints the bars missed and exits with 3
+# launches of its three frames (live, reloaded program, package) printed at
+# its end whatever its outcome; where the package misses export.BARS it
+# prints the bars missed and exits with 3. Before the package's bars it
+# prints FLOAT64 {json}: the live frame and the package each held to the
+# frame of a float64 copy of the model (export.float64_shares) on the same
+# inputs at the bars' tolerance, a diagnosis that gates nothing (ROADMAP
+# Queue 3 item 2); the float64 frame's launch is left out of the count
 VERIFY_CHILD = """\
 import json
 import sys
-from mgnet_tpu_torch.export import BarsMissed
+from mgnet_tpu_torch.export import BarsMissed, float64_shares
 from mgnet_tpu_torch.ops.center_argmin import center_argmin
-from mgnet_tpu_torch.tools import export_inference
+from mgnet_tpu_torch.tools import export_inference as tool
+seen = {}
+def keep(name, fn):
+    def kept(*args, **kwargs):
+        seen[name] = out = fn(*args, **kwargs)
+        return out
+    return kept
+tool.build_fused_inference = keep("frame", tool.build_fused_inference)
+tool.verify_inputs = keep("inputs", tool.verify_inputs)
+compare = tool.compare_outputs
+def compare_after_float64(got, want, statics, *bars):
+    before = center_argmin.launches
+    found = float64_shares(seen["frame"], {"eager": want, "package": got},
+                           seen["inputs"], *bars[1:3])
+    center_argmin.launches = before
+    print("FLOAT64 " + json.dumps(found), flush=True)
+    return compare(got, want, statics, *bars)
+tool.compare_outputs = compare_after_float64
 try:
-    export_inference.main(sys.argv[1:])
+    tool.main(sys.argv[1:])
 except BarsMissed as e:
     print("BARS MISSED " + json.dumps(e.missed), flush=True)
     print(f"BARS FOUND {e}", flush=True)
@@ -2892,13 +2994,16 @@ def finish_verify_child(child, smi) -> int:
         f"rc {rc}, {time.perf_counter() - t0:.1f} s with set-up; "
         f"center_argmin launches {launches}; {smi}")
     for ln in lines:
-        if ln.startswith(("Wrote ", "EXACT OK", "PARITY OK", "BARS ")):
+        if ln.startswith(("Wrote ", "EXACT OK", "FLOAT64 ", "PARITY OK",
+                          "BARS ")):
             log(f"[export-bf16]   {ln}")
+    float64 = [ln for ln in lines if ln.startswith("FLOAT64 ")]
     held = rc == 0 and len(parity) == 1 and not missed
     known = rc == 3 and not parity and len(missed) == 1 \
         and bf16_open_fault("model_final", missed[0])
-    if len(exact) != 1 or len(launches) != 1 \
-            or (DEVICE != "cpu" and launches != [3]) or not (held or known):
+    if len(exact) != 1 or len(launches) != 1 or len(float64) != 1 \
+            or (DEVICE != "cpu" and launches != [3]) \
+            or not (held or known):
         raise AssertionError(f"export_inference --verify (bf16) failed, or "
                              f"missed more than its open fault:\n"
                              f"{text[-4000:]}")
@@ -2984,24 +3089,180 @@ def overfit(smi) -> int:
     return launches
 
 
-def phase_validation(smi, root: Path):
-    """The overfit validations on the card, while a child process runs the
-    bf16 export_inference --verify on the trainer's model_final under
-    ``root``: both depth ablations at each ABLATION_WIDTHS (each must
-    PASS), then the panoptic overfit. Returns (the warp and SSIM
-    launches by path, center_argmin's by path)."""
+def phase_validation(smi):
+    """The overfit validations on the card (while the child of
+    start_verify_child runs the bf16 export_inference --verify): both
+    depth ablations at each ABLATION_WIDTHS (each must PASS), then the
+    panoptic overfit. Returns (the warp and SSIM launches by path,
+    center_argmin's by path)."""
     t0 = time.perf_counter()
-    child = start_verify_child(root)
     paths = {}
-    try:
-        for mode, steps in ABLATIONS:
-            for width in ABLATION_WIDTHS:
-                paths[f"{mode}-{width}"] = ablation(mode, steps, width, smi)
-        argmin = {"overfit-eval": overfit(smi)}
-    finally:
-        argmin_bf16 = finish_verify_child(child, smi)
-    argmin["export-verify-bf16"] = argmin_bf16
+    for mode, steps in ABLATIONS:
+        for width in ABLATION_WIDTHS:
+            paths[f"{mode}-{width}"] = ablation(mode, steps, width, smi)
+    argmin = {"overfit-eval": overfit(smi)}
     log(f"[validate] phase {time.perf_counter() - t0:.1f} s")
+    return paths, argmin
+
+
+def start_runbook(root: Path):
+    """Start tools.run_pipeline --smoke --stages RUNBOOK_STAGES on DEVICE
+    in a subprocess (its stages are subprocesses) writing under
+    ``root/runbook``, its output into a log there; returns (process, log
+    path, start time)."""
+    out = root / "runbook"
+    out.mkdir(exist_ok=True)
+    argv = ["--smoke", "--stages", RUNBOOK_STAGES, "--device", DEVICE,
+            "--workers", "0", "--data-root", str(out / "data"),
+            "--output-dir", str(out / "out"), "--weights-dir",
+            str(out / "weights")]
+    log_path = out / "pipeline.log"
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "mgnet_tpu_torch.tools.run_pipeline",
+             *argv], cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+            stdout=f, stderr=subprocess.STDOUT)
+    return proc, log_path, time.perf_counter()
+
+
+def finish_runbook(started, smi) -> dict:
+    """Wait for the runbook of start_runbook: it must print PIPELINE OK
+    and leave model_final and metrics.json; returns the stages'
+    seconds."""
+    proc, log_path, t0 = started
+    try:
+        rc = proc.wait(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    text = log_path.read_text()
+    lines = text.splitlines()
+    ok = [ln for ln in lines if ln.startswith("PIPELINE OK")]
+    stages = {ln.split()[1].rstrip(":"): float(ln.split()[2]) for ln in lines
+              if ln.startswith("stage ")}
+    out = log_path.parent / "out"
+    log(f"[tools] run_pipeline --smoke --stages {RUNBOOK_STAGES} --device "
+        f"{DEVICE} (beside the validation and the tools): rc {rc}, "
+        f"{time.perf_counter() - t0:.1f} s; {ok}; stage seconds {stages}; "
+        f"{smi}")
+    if rc != 0 or len(ok) != 1 or not (out / "model_final").is_dir() \
+            or not (out / "metrics.json").is_file():
+        raise AssertionError(f"run_pipeline failed:\n{text[-4000:]}")
+    return stages
+
+
+def run_tool(name: str, module, argv, smi):
+    """``module.main(argv)`` in this process, its seconds logged: returns
+    (its result, the center_argmin launches in it)."""
+    center_argmin.launches = 0
+    t0 = time.perf_counter()
+    result = module.main(list(argv))
+    log(f"[tools] {name} {' '.join(argv)}: {time.perf_counter() - t0:.1f} "
+        f"s; {smi}")
+    return result, center_argmin.launches
+
+
+def phase_tools(smi, root: Path, runbook):
+    """The bench and profile tools at their smallest settings, each
+    checked where its path implies launches, then the runbook started by
+    start_runbook (``runbook``): bench_train's step 6 / 8 / 6 (warp, SSIM
+    forward, SSIM backward); profile_train's ledger summing to its full
+    step, no warp launched under the surrogate warp, no SSIM kernel under
+    the L1 residual and nothing without the depth branch; one
+    center_argmin a frame (or a device batch) in bench_eval_loop,
+    profile_postproc, profile_inference and profile_fused_roofline's
+    variants with panoptic fusion; the host tools' C++ and numpy in
+    agreement; a torch.profiler trace with device time; run_pipeline's
+    smoke chain on the card. Returns the kernels' launches by path."""
+    t_phase = time.perf_counter()
+    paths, argmin = {}, {}
+    dev = ("--device", DEVICE)
+
+    cfg = bench_train.bench_config(bench_train.parse_args(list(TOOL_TRAIN)))
+    want = expected_launches(cfg)
+    reset_counts()
+    res, _ = run_tool("bench_train", bench_train, dev + TOOL_TRAIN, smi)
+    launched = res["launches_per_step"]
+    paths["bench_train"] = counts()
+    if DEVICE != "cpu" and launched != {k: float(v) for k, v in
+                                        want.items()}:
+        raise AssertionError(f"bench_train: {launched} a step, expected "
+                             f"{want}")
+
+    reset_counts()
+    res, _ = run_tool("profile_train", profile_train,
+                         dev + TOOL_PROFILE_TRAIN, smi)
+    paths["profile_train"] = counts()
+    per = res["launches_per_step"]
+    log(f"[tools] profile_train ledger (ms) {res['ledger_ms']}, sum "
+        f"{res['ledger_sum_ms']} of the full step {res['full_step_ms']}; "
+        f"launches per step by variant {per}")
+    if abs(res["ledger_sum_ms"] - res["full_step_ms"]) > 1e-3:
+        raise AssertionError("profile_train's rows do not sum to the step")
+    expect = {name: dict(want) for name, *_ in profile_train.VARIANTS}
+    expect["T1 surrogate warp"]["warp_bilinear"] = 0
+    for name in list(expect)[2:]:
+        expect[name] = dict.fromkeys(want, 0)
+    if DEVICE != "cpu" and per != {n: {k: float(v) for k, v in e.items()}
+                                   for n, e in expect.items()}:
+        raise AssertionError(f"profile_train launches {per}, expected "
+                             f"{expect}")
+
+    reset_counts()
+    res, n = run_tool("bench_eval_loop", bench_eval_loop,
+                         dev + TOOL_EVAL, smi)
+    argmin["bench_eval_loop"] = n
+    log(f"[tools] bench_eval_loop passes {res['passes']}; center_argmin "
+        f"launches {n}")
+    if DEVICE != "cpu" and n != 2:
+        raise AssertionError(f"bench_eval_loop: {n} center_argmin launches "
+                             "(one device batch in each of 2 passes)")
+
+    for name, module, argv, keys in (
+            ("profile_postproc", profile_postproc,
+             TOOL_POSTPROC + ("--trace", str(root / "trace")),
+             ("center_argmin_launches_per_call",)),
+            ("profile_inference", profile_inference, TOOL_INFERENCE,
+             ("center_argmin_launches_per_call",)),
+            ("profile_inference --tta", profile_inference,
+             TOOL_INFERENCE + ("--tta", "--tta-batch", "1"),
+             ("center_argmin_launches_per_step",)),
+            ("profile_fused_roofline", profile_fused_roofline, TOOL_ROOFLINE,
+             ("center_argmin_launches_per_frame",))):
+        res, n = run_tool(name, module, dev + argv, smi)
+        argmin[name] = n
+        per = res[keys[0]]
+        log(f"[tools] {name}: "
+            f"{res.get('stages_ms', res.get('rows', res.get('value')))}; "
+            f"center_argmin launches per call {per}")
+        if isinstance(per, dict):
+            want_per = {k: 0.0 if k.startswith(("V3", "V4")) else 1.0
+                        for k in per}
+        else:
+            per, want_per = [per], [1.0]
+        if DEVICE != "cpu" and per != want_per:
+            raise AssertionError(f"{name}: center_argmin launches {per}")
+    kernels = (root / "trace" / "kernels.txt").read_text()
+    log(f"[tools] profile_postproc --trace: trace.json "
+        f"{(root / 'trace' / 'trace.json').stat().st_size} bytes; the "
+        f"device table's head: {kernels.splitlines()[:4]}")
+    if DEVICE != "cpu" and "CUDA" not in kernels:
+        raise AssertionError("the trace holds no device time")
+
+    res, _ = run_tool("profile_model", profile_model, dev + TOOL_MODEL,
+                         smi)
+    log(f"[tools] profile_model {res['stages_ms']}")
+    res, _ = run_tool("bench_mapper", bench_mapper, TOOL_MAPPER, smi)
+    log(f"[tools] bench_mapper {res}")
+    res, _ = run_tool("bench_dataloader", bench_dataloader,
+                         TOOL_DATALOADER, smi)
+    log(f"[tools] bench_dataloader {res}")
+    if any(counts().values()):
+        raise AssertionError(f"a host or inference tool launched a training "
+                             f"kernel: {counts()}")
+    stages = finish_runbook(runbook, smi)
+    log(f"[tools] phase {time.perf_counter() - t_phase:.1f} s; runbook "
+        f"stages {stages}")
     return paths, argmin
 
 
@@ -3153,18 +3414,31 @@ def main() -> int:
         mark("distribution")
         export_paths = phase_export(smi, Path(tmp))
         mark("export")
-        validation_paths, validation_argmin = phase_validation(
-            smi, Path(tmp))
-        mark("validation")
+        # the bf16 --verify child and the runbook's subprocesses run
+        # beside the validation and the tools phases
+        child = start_verify_child(Path(tmp))
+        runbook = start_runbook(Path(tmp))
+        try:
+            validation_paths, validation_argmin = phase_validation(smi)
+            mark("validation")
+            tools_paths, tools_argmin = phase_tools(smi, Path(tmp), runbook)
+            mark("tools")
+        finally:
+            if runbook[0].poll() is None:  # a phase above raised
+                runbook[0].kill()
+            validation_argmin["export-verify-bf16"] = finish_verify_child(
+                child, smi)
+        mark("export-bf16-wait")
     rows[0]["launches_by_path"] = {
         "serving": rows[0]["launches"], **frame_paths,
         "trainer-eval": trainer_paths["trainer-resume"].pop("center_argmin"),
-        **eval_paths, **serving_paths, **export_paths, **validation_argmin}
+        **eval_paths, **serving_paths, **export_paths, **validation_argmin,
+        **tools_argmin}
     for row in rows[1:]:
         row["launches_by_path"] = {"train": row["launches"], **{
             tag: n[row["name"]] for tag, n in
             {**train_paths, **trainer_paths, **dist_paths,
-             **validation_paths}.items()}}
+             **validation_paths, **tools_paths}.items()}}
     log(f"[done] elapsed {time.perf_counter() - T_START:.1f} s; seconds by "
         f"phase {seconds}")
     log(f"[done] elapsed {time.perf_counter() - T_START:.1f} s")

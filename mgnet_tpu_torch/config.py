@@ -16,8 +16,9 @@ port reads: ``TEST.AMP.ENABLED``, which no code of the JAX package reads
 either (the eval step's dtype is ``MODEL.COMPUTE_DTYPE``). The trainer
 (``train/trainer.py``) reads ``DATASETS.*``, ``DATALOADER.*``,
 ``INPUT.*``, ``MODEL.WEIGHTS``, ``OUTPUT_DIR``, ``TEST.*`` and ``MESH.*``
-(``parallel.data_parallel_size``: ``DATA`` -1 or the number of ranks;
-``MODEL`` > 1, the JAX package's spatial axis, raises).
+(``parallel.data_parallel_size``: ``DATA`` x ``MODEL`` ranks, ``DATA``
+-1 for the ranks over ``MODEL``; the ``MODEL`` ranks of one data shard
+hold copies of it, as the JAX package's model axis).
 
 The card's machine has no PyYAML, so the files are read by ``parse_yaml``,
 a reader of the subset the shipped configs use: nested block maps by

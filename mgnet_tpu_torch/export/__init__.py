@@ -3,17 +3,22 @@
 
 from mgnet_tpu_torch.export.aot import (
     BARS,
+    INDUCTOR_NUMERICS,
     BarsMissed,
     compare_exact,
     compare_outputs,
     export_fused_inference,
+    float64_shares,
     fnv1a64,
     load_exported,
     load_program,
     package_path,
     save_exported,
+    shares,
 )
 
-__all__ = ["BARS", "BarsMissed", "compare_exact", "compare_outputs",
-           "export_fused_inference", "fnv1a64", "load_exported",
-           "load_program", "package_path", "save_exported"]
+__all__ = ["BARS", "BarsMissed", "INDUCTOR_NUMERICS", "compare_exact",
+           "compare_outputs", "export_fused_inference", "float64_shares",
+           "fnv1a64",
+           "load_exported", "load_program", "package_path", "save_exported",
+           "shares"]

@@ -22,6 +22,7 @@ frame's own: a card's package is exported from a frame on the card.
 
 from __future__ import annotations
 
+import copy
 import io
 import os
 import time
@@ -31,7 +32,11 @@ from typing import Callable, Tuple
 import torch
 from torch import nn
 
-from mgnet_tpu_torch.inference.fused import fusion_kwargs
+from mgnet_tpu_torch.inference.fused import (
+    build_fused_inference,
+    fusion_kwargs,
+)
+from mgnet_tpu_torch.models import as_float64_
 from mgnet_tpu_torch.ops import _build
 # also registers mgnet::center_argmin, which the traced frame calls
 from mgnet_tpu_torch.ops.center_argmin import center_argmin_reference
@@ -39,7 +44,8 @@ from mgnet_tpu_torch.postprocessing.panoptic import panoptic_fusion
 
 __all__ = ["export_fused_inference", "save_exported", "load_exported",
            "load_program", "package_path", "compare_exact",
-           "compare_outputs", "BarsMissed", "fnv1a64", "BARS"]
+           "compare_outputs", "shares", "float64_shares", "BarsMissed",
+           "fnv1a64", "BARS", "INDUCTOR_NUMERICS"]
 
 # The exported frame against the live one, by the model's compute dtype:
 # (the share of pixels on which the labels agree, at least; the continuous
@@ -59,6 +65,13 @@ __all__ = ["export_fused_inference", "save_exported", "load_exported",
 # trainer's model_final, miss it (an open fault: PERF.md, ROADMAP).
 BARS = {torch.float32: (0.999, 1e-4, 1e-4, 0.98),
         torch.bfloat16: (0.97, 1e-2, 2e-2, 0.99)}
+
+
+# The Inductor configs of the package that bear on its numbers:
+# round to bfloat16 where eager autocast does; otherwise Inductor keeps a
+# fused kernel's intermediates in float32, and the bfloat16 package drifts
+# further from the eager frame
+INDUCTOR_NUMERICS = {"emulate_precision_casts": True}
 
 
 class _Forward(nn.Module):
@@ -129,10 +142,7 @@ def save_exported(path, exported, blob: bytes) -> Tuple[Path, float]:
         inductor_configs={
             "aot_inductor.metadata": {
                 "output_keys": ",".join(output_keys(exported))},
-            # round to bfloat16 where eager autocast does: otherwise
-            # Inductor keeps a fused kernel's intermediates in float32, and
-            # the bfloat16 package drifts further from the eager frame
-            "emulate_precision_casts": True,
+            **INDUCTOR_NUMERICS,
             # the g++ on PATH, which also builds the C++ runner, rather
             # than $CXX: Inductor links the package's library with
             # -fopenmp, which a $CXX without libgomp refuses
@@ -273,6 +283,34 @@ def compare_outputs(got, want, statics, agree: float, atol: float,
         raise BarsMissed(f"{'; '.join(failed)} (found {found})", missed,
                          found)
     return found
+
+
+def shares(got, want, statics, atol: float, rtol: float) -> dict:
+    """``compare_outputs``' findings without its bars: {"agree": the
+    labels' agreement, "within": each continuous output's share within
+    ``atol`` + ``rtol`` * |want|, "max_abs": ...}. Holds a frame against
+    another frame, such as the model's float64 reference."""
+    try:
+        return compare_outputs(got, want, statics, 0.0, atol, rtol, 0.0)
+    except BarsMissed as e:  # NaN at other pixels: the shares stand
+        return e.found
+
+
+def float64_shares(frame, outputs: dict, inputs, atol: float,
+                   rtol: float) -> dict:
+    """Each of ``outputs`` ({name: outputs of ``frame``, or of code built
+    from it, on ``inputs``}) held by ``shares`` to the same frame with a
+    float64 copy of its model (``models.as_float64_``) on the same
+    inputs: {name: {"agree": ..., "within": ...}}. Tells how far two
+    frames that disagree each lie from the exact answer."""
+    frame64 = build_fused_inference(
+        as_float64_(copy.deepcopy(frame.model)), frame.statics,
+        frame.pixel_mean, frame.pixel_std, frame.with_panoptic,
+        frame.with_depth, frame.return_point_cloud, frame.device)
+    ref = frame64(*inputs)
+    return {name: {k: v for k, v in shares(out, ref, frame.statics, atol,
+                                           rtol).items() if k != "max_abs"}
+            for name, out in outputs.items()}
 
 
 def fnv1a64(t: torch.Tensor) -> int:

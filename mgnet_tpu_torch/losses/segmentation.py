@@ -16,7 +16,12 @@ the bisection's maximum and counts, k and n_min from the global pixel
 count, OHEM's count, sum and top-k mean, the CE valid count and the
 center / offset weight sums. Sums that carry a gradient go through the
 differentiable ``all_sum``; counts, maxima and weight sums through
-``reduce_``. Every rank's loss is the global loss.
+``reduce_``. Every rank's loss is the global loss. Where ranks of a
+model axis hold copies of one data shard (``MESH.MODEL`` > 1), every sum
+and count holds each pixel that many times: ratios come out unchanged,
+and the counts that select pixels (k, n_min) are taken on the data axis
+and then multiplied by the copies, so that the same pixels are selected
+as from one copy of the global batch.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from __future__ import annotations
 import torch
 
 from mgnet_tpu_torch.parallel.collectives import all_mean, all_sum, reduce_
-from mgnet_tpu_torch.parallel.multihost import process_count
+from mgnet_tpu_torch.parallel.multihost import data_count, model_axis_size
 
 __all__ = [
     "cross_entropy_loss",
@@ -92,7 +97,7 @@ def deeplab_ce_loss(logits, labels, weights=None, ignore_label: int = 255,
     flat = ce.reshape(-1)
     if top_k_percent >= 1.0:
         return all_mean(flat.mean())
-    k = int(top_k_percent * flat.shape[0] * process_count())
+    k = model_axis_size() * int(top_k_percent * flat.shape[0] * data_count())
     return topk_sum(flat, k) / k
 
 
@@ -105,8 +110,8 @@ def ohem_ce_loss(logits, labels, weights=None, ignore_label: int = 255,
     if weights is not None:
         ce = ce * weights
     flat = ce.reshape(-1).float()
-    n = flat.shape[0] * process_count()
-    n_min = min(n_min, n - 1)
+    n = flat.shape[0] * data_count()
+    n_min = model_axis_size() * min(n_min, n - 1)
     thresh = -torch.log(torch.tensor(ohem_threshold, dtype=torch.float32,
                                      device=flat.device))
     above = flat > thresh

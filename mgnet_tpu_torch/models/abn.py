@@ -51,7 +51,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from mgnet_tpu_torch.parallel.collectives import all_mean
-from mgnet_tpu_torch.parallel.multihost import process_count
+from mgnet_tpu_torch.parallel.multihost import data_count, process_count
 
 __all__ = ["ABN", "ConvABN", "BN_EPS", "BN_MOMENTUM", "INITS",
            "checkpoint_once", "init_conv_", "recorded"]
@@ -129,7 +129,8 @@ class ABN(nn.Module):
         if not self.update_stats:
             return mean, var
         with torch.no_grad():
-            n = xf.numel() // xf.shape[1] * world
+            # the global batch's count: copies on a model axis excluded
+            n = xf.numel() // xf.shape[1] * data_count()
             correction = n / (n - 1) if n > 1 else 1.0
             m = BN_MOMENTUM
             self.running_mean.mul_(m).add_((1 - m) * mean)

@@ -18,8 +18,11 @@ from mgnet_tpu_torch.parallel.multihost import (
     all_gather_host,
     all_gather_objects,
     broadcast_object,
+    data_count,
+    data_index,
     initialize_distributed,
     is_main_process,
+    model_axis_size,
     process_count,
     process_index,
     shutdown_distributed,
@@ -27,7 +30,8 @@ from mgnet_tpu_torch.parallel.multihost import (
 )
 
 __all__ = ["all_gather_host", "all_gather_objects", "all_mean", "all_sum",
-           "average_gradients", "broadcast_object", "data_parallel_size",
-           "initialize_distributed", "is_main_process", "local_positions",
+           "average_gradients", "broadcast_object", "data_count",
+           "data_index", "data_parallel_size", "initialize_distributed",
+           "is_main_process", "local_positions", "model_axis_size",
            "process_count", "process_index", "reduce_", "replicate_",
            "shard_batch", "shutdown_distributed", "synchronize"]

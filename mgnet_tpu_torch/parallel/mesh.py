@@ -6,8 +6,9 @@ model)`` mesh becomes the default process group: ``data_parallel_size``
 is its ``data`` axis, ``shard_batch`` this rank's slice of a global batch
 (the counterpart of placing a batch sharded on ``data``), and
 ``replicate_`` the broadcast of rank 0's parameters and buffers
-(``replicate_to_mesh``). The ``model`` axis, the JAX package's spatial
-partitioning of very large inputs, is not ported (ROADMAP.md).
+(``replicate_to_mesh``). The ``model`` axis partitions nothing, as in
+the JAX package: ``MESH.MODEL`` ranks hold copies of each data shard
+(``multihost.model_axis_size``), rank r the shard ``r // MODEL``.
 
 Micro-batches: the JAX step splits the GLOBAL batch into ``k`` contiguous
 micro-batches (``SOLVER.GRAD_ACCUM_STEPS``). A rank holds, of each global
@@ -25,25 +26,34 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from mgnet_tpu_torch.parallel.multihost import process_count, process_index
+from mgnet_tpu_torch.parallel.multihost import (
+    data_count,
+    data_index,
+    model_axis_size,
+    process_count,
+)
 
 __all__ = ["data_parallel_size", "local_positions", "replicate_",
            "shard_batch"]
 
 
 def data_parallel_size(cfg) -> int:
-    """The data axis: ``MESH.DATA`` (-1 = every rank of the group), which
-    must be the group's size; ``MESH.MODEL`` > 1 raises."""
-    if int(cfg.MESH.MODEL) > 1:
-        raise NotImplementedError(
-            f"MESH.MODEL={cfg.MESH.MODEL}: the spatial model axis is not "
-            "ported (ROADMAP.md, Queue 1); the port is data-parallel only")
+    """The data axis: ``MESH.DATA`` (-1 = the group's ranks over
+    ``MESH.MODEL``), which times ``MESH.MODEL`` must be the group's size;
+    ``MESH.MODEL`` must be the group's model axis
+    (``initialize_distributed``'s ``model_axis``)."""
     world = process_count()
+    model = int(cfg.MESH.MODEL)
     data = int(cfg.MESH.DATA)
-    if data not in (-1, world):
-        raise ValueError(f"MESH.DATA={data} but the process group has "
-                         f"{world} ranks; set -1 or the world size")
-    return world
+    if model < 1 or world % model or data not in (-1, world // model):
+        raise ValueError(f"MESH.DATA={data} x MESH.MODEL={model} but the "
+                         f"process group has {world} ranks; the product "
+                         "must be the world size (DATA -1: world / MODEL)")
+    if world > 1 and model != model_axis_size():
+        raise ValueError(f"MESH.MODEL={model} but the group's model axis is "
+                         f"{model_axis_size()}: pass model_axis to "
+                         "initialize_distributed (or set_model_axis)")
+    return world // model
 
 
 def local_positions(batch: int, rank: int, world: int,
@@ -62,10 +72,12 @@ def local_positions(batch: int, rank: int, world: int,
 
 def shard_batch(batch: Dict, micro_batches: int = 1, rank=None,
                 world=None) -> Dict:
-    """This rank's part of a global ``batch`` (every array or tensor's dim
-    0, see ``local_positions``); other values pass through."""
-    rank = process_index() if rank is None else rank
-    world = process_count() if world is None else world
+    """Data shard ``rank`` of ``world`` of a global ``batch`` (every array
+    or tensor's dim 0, see ``local_positions``; by default this rank's
+    shard, ``multihost.data_index`` of ``data_count``); other values pass
+    through."""
+    rank = data_index() if rank is None else rank
+    world = data_count() if world is None else world
     if world == 1:
         return batch
     out = {}

@@ -12,6 +12,16 @@ group, always gloo, so that barriers and object gathers work whatever the
 default group's backend. A default group that the caller built itself
 (its own address, world size and rank) serves both. Without a group
 every helper acts as the one process.
+
+The group's ranks form the JAX package's (data, model) mesh, row-major:
+rank r holds data shard ``r // model`` (``data_index``) of
+``data_count`` = world / model. The model axis partitions nothing, as in
+JAX (``mgnet_tpu/parallel/mesh.py``, ``batch_sharding`` is P(data)): the
+``model_axis_size`` ranks of one data shard hold copies of it, which the
+reductions that count (OHEM's k and n_min, ABN's n) divide out.
+``initialize_distributed(model_axis=MESH.MODEL)`` sets the model axis
+with the group; a caller that builds its own group, or changes the axis
+within one, calls ``set_model_axis``.
 """
 
 from __future__ import annotations
@@ -24,11 +34,15 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["all_gather_host", "all_gather_objects", "broadcast_object",
-           "initialize_distributed", "is_main_process", "process_count",
-           "process_index", "shutdown_distributed", "synchronize"]
+           "data_count", "data_index", "initialize_distributed",
+           "is_main_process", "model_axis_size", "process_count",
+           "process_index", "set_model_axis", "shutdown_distributed",
+           "synchronize"]
 
 # the gloo group of the host helpers when the default group is not gloo
 _HOST_GROUP = None
+# the ranks that hold copies of one data shard (MESH.MODEL)
+_MODEL_AXIS = 1
 
 
 def initialize_distributed(coordinator_address: Optional[str] = None,
@@ -36,7 +50,8 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
                            process_id: Optional[int] = None,
                            device="cpu", local_rank: int = 0,
                            backend: Optional[str] = None,
-                           always: bool = False) -> torch.device:
+                           always: bool = False,
+                           model_axis: int = 1) -> torch.device:
     """Join ``num_processes`` processes in a default group whose TCP store
     listens at ``coordinator_address`` ("host:port", bound by process 0);
     this process is ``process_id``. Returns the rank's device: for a
@@ -46,7 +61,8 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     ``backend`` defaults to "nccl" on a card and "gloo" on the CPU; a
     group that is not gloo gets a gloo group beside it for the host
     helpers. One process is no group at all (a no-op that returns the
-    device) unless ``always``."""
+    device) unless ``always``. ``model_axis`` (``MESH.MODEL``) ranks hold
+    copies of each data shard (``set_model_axis``)."""
     global _HOST_GROUP
     device = torch.device(device)
     if device.type == "cuda":
@@ -61,15 +77,17 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
         timeout=timedelta(minutes=30))
     if backend != "gloo":
         _HOST_GROUP = dist.new_group(backend="gloo")
+    set_model_axis(model_axis)
     return device
 
 
 def shutdown_distributed() -> None:
     """Leave the default group (and its host group), if there is one."""
-    global _HOST_GROUP
+    global _HOST_GROUP, _MODEL_AXIS
     if _initialized():
         dist.destroy_process_group()
     _HOST_GROUP = None
+    _MODEL_AXIS = 1
 
 
 def _initialized() -> bool:
@@ -82,6 +100,31 @@ def process_count() -> int:
 
 def process_index() -> int:
     return dist.get_rank() if _initialized() else 0
+
+
+def set_model_axis(size: int) -> None:
+    """Make ``size`` ranks hold copies of each data shard; the group's
+    size must divide by it."""
+    global _MODEL_AXIS
+    if size < 1 or process_count() % size:
+        raise ValueError(f"a model axis of {size} does not divide the "
+                         f"{process_count()} ranks")
+    _MODEL_AXIS = size
+
+
+def model_axis_size() -> int:
+    """Ranks that hold copies of one data shard; 1 without a group."""
+    return _MODEL_AXIS if process_count() > 1 else 1
+
+
+def data_count() -> int:
+    """Data shards of the global batch: the ranks over the model axis."""
+    return process_count() // model_axis_size()
+
+
+def data_index() -> int:
+    """This rank's data shard (row-major over (data, model))."""
+    return process_index() // model_axis_size()
 
 
 def is_main_process() -> bool:

@@ -19,9 +19,11 @@ one JSON line to ``OUTPUT_DIR/metrics.json``.
 Several cards, with the JAX command's flags and meanings: ``--num-devices
 N`` runs N ranks on this host, one process and one card each (-1, the
 default: every visible card; one process with ``--device cpu``), and sets
-``MESH.DATA`` to the world size; ``--num-processes`` is the number of
-hosts, ``--process-id`` this host's index and ``--coordinator`` the
-``host:port`` of host 0, where the group's store listens. A rank's global
+``MESH.DATA`` to the world size over ``MESH.MODEL`` (the ranks of one
+data shard, which hold copies of it: ``parallel.multihost``);
+``--num-processes`` is the number of hosts, ``--process-id`` this host's
+index and ``--coordinator`` the ``host:port`` of host 0, where the
+group's store listens. A rank's global
 index is ``process_id * N + local rank`` of a world of ``num_processes *
 N``. The ranks are started by ``torch.multiprocessing`` spawn, over NCCL
 on the cards and gloo with ``--device cpu``; a rank that fails makes the
@@ -96,7 +98,11 @@ def local_ranks(args) -> int:
 def setup(args):
     cfg = load_config(args.config_file or None, args.opts)
     if getattr(args, "num_devices", -1) != -1:
-        cfg.MESH.DATA = args.num_processes * args.num_devices
+        world = args.num_processes * args.num_devices
+        if world % int(cfg.MESH.MODEL):
+            raise ValueError(f"{world} ranks do not divide over "
+                             f"MESH.MODEL={cfg.MESH.MODEL}")
+        cfg.MESH.DATA = world // int(cfg.MESH.MODEL)
     if cfg.WRITE_OUTPUT_TO_SUBDIR and not args.eval_only:
         stamp = datetime.datetime.now().strftime("%Y%m%d_%H%M%S")
         name = os.path.splitext(os.path.basename(args.config_file or "run"))[0]
@@ -172,7 +178,9 @@ def run_rank(local_rank: int, args):
     device = initialize_distributed(
         args.coordinator, args.num_processes * n,
         args.process_id * n + local_rank, device=args.device,
-        local_rank=local_rank, always=True)
+        local_rank=local_rank, always=True,
+        model_axis=int(load_config(args.config_file or None,
+                                   args.opts).MESH.MODEL))
     try:
         return run(args, device)
     finally:

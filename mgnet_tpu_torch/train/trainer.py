@@ -68,6 +68,7 @@ from mgnet_tpu_torch.inference.tta import multi_scale_flip_inference
 from mgnet_tpu_torch.inference.visualizer import Visualizer
 from mgnet_tpu_torch.models import build_model, init_random_
 from mgnet_tpu_torch.parallel import (
+    data_index,
     data_parallel_size,
     process_count,
     process_index,
@@ -139,7 +140,7 @@ class Trainer:
             num_workers=cfg.DATALOADER.NUM_WORKERS,
             prefetch=cfg.DATALOADER.PREFETCH,
             divisibility=cfg.MODEL.SIZE_DIVISIBILITY,
-            process_index=process_index(), process_count=world,
+            process_index=data_index(), process_count=world,
             pin_memory=self.device.type == "cuda", micro_batches=accum,
         )
         # the npz graft's {"matched", "skipped"}, once resume_or_load did one

@@ -9,9 +9,9 @@ from mgnet_tpu_torch.utils.checkpoint import (
 )
 from mgnet_tpu_torch.utils.events import MetricLogger
 from mgnet_tpu_torch.utils.loader import locate
-from mgnet_tpu_torch.utils.profiling import peak_hbm_gb, steady_state_timer
+from mgnet_tpu_torch.utils.profiling import host_ms, peak_hbm_gb
 from mgnet_tpu_torch.utils.weights import load_jax_params, load_pretrained_npz
 
-__all__ = ["CheckpointManager", "MetricLogger", "load_jax_params",
+__all__ = ["CheckpointManager", "MetricLogger", "host_ms", "load_jax_params",
            "load_params", "load_pretrained_npz", "locate", "peak_hbm_gb",
-           "save_params", "steady_state_timer"]
+           "save_params"]

@@ -7,14 +7,19 @@ Joins a gloo group of two on localhost (one intra-op thread), runs every
 case below on its part of the global inputs, and saves {case: results} to
 ``OUT/rank<RANK>.pt``. With ``cuda`` both ranks share the card (gloo
 carries CUDA tensors; NCCL refuses two ranks on one device), TF32 off,
-and run the two training steps only (tests/test_torch_gpu.py). Each
+and run the training steps only (tests/test_torch_gpu.py). Each
 case function, called with ``world=1``, is the one-process reference on
-the whole of the same inputs. ``STATE`` is the state_dict that both
-training steps start from.
+the whole of the same inputs. ``STATE`` is the state_dict that the
+training steps start from. The ``model2/`` cases run the two ranks as
+one data shard on a model axis of 2 (``MESH.DATA 1``, ``MESH.MODEL 2``):
+each rank holds the whole global batch, and must compute what one
+process computes.
 
 Gradients of inputs are those of the global loss: every rank's loss is
-the global loss, so the backward from every rank gives each rank
-``world`` times its inputs' share, which the cases divide out.
+the global loss, so the backward from every rank gives each rank as many
+times its inputs' share as there are data shards (each shard's copies
+on a model axis count once: the global sums count each pixel as many
+times as it has copies), which the cases divide out.
 """
 
 from __future__ import annotations
@@ -39,11 +44,15 @@ from mgnet_tpu_torch.losses import (
 from mgnet_tpu_torch.models import as_float64_, build_model
 from mgnet_tpu_torch.models.abn import ABN
 from mgnet_tpu_torch.parallel import (
+    data_count,
+    data_index,
+    data_parallel_size,
     initialize_distributed,
     shard_batch,
     shutdown_distributed,
     synchronize,
 )
+from mgnet_tpu_torch.parallel.multihost import set_model_axis
 from mgnet_tpu_torch.train import create_train_state, make_train_step
 from mgnet_tpu_torch.utils.checkpoint import CheckpointManager
 from mgnet_tpu_torch.utils.events import MetricLogger
@@ -103,18 +112,30 @@ def step_state(cfg, state_dict, device="cpu", float64=False):
     return state
 
 
-def step_case(state_dict, accum: int, remat: bool, rank: int, world: int,
-              device="cpu", float64=False):
+def step_case(state_dict, accum: int, remat: bool, model_axis: int,
+              rank: int, world: int, device="cpu", float64=False):
     """One training step from ``state_dict`` on this rank's part of the
     global batch: the metrics, the (averaged) gradients, the BN running
-    statistics and every parameter and buffer after it, on the CPU. With
-    ``float64`` the model runs as its float64 reference
-    (``models.as_float64_``)."""
+    statistics and every parameter and buffer after it, on the CPU. In a
+    group (``world`` > 1) the ranks form ``MESH.MODEL model_axis``
+    (``set_model_axis``, checked by the trainer's ``data_parallel_size``),
+    each holding its data shard. With ``float64`` the model runs as its
+    float64 reference (``models.as_float64_``)."""
     cfg = step_config(accum, remat)
-    state = step_state(cfg, state_dict, device, float64)
-    batch = {k: v.to(device) for k, v in shard_batch(
-        _tensors(step_batch(accum)), accum, rank, world).items()}
-    _, metrics = make_train_step(cfg)(state, batch)
+    copies = model_axis if world > 1 else 1
+    if world > 1:
+        cfg.MESH.MODEL = model_axis
+        set_model_axis(model_axis)
+        data_parallel_size(cfg)
+    try:
+        state = step_state(cfg, state_dict, device, float64)
+        batch = {k: v.to(device) for k, v in shard_batch(
+            _tensors(step_batch(accum)), accum, rank // copies,
+            world // copies).items()}
+        _, metrics = make_train_step(cfg)(state, batch)
+    finally:
+        if world > 1:
+            set_model_axis(1)
     sd = state.params.state_dict()
     return dict(
         metrics={k: float(v) for k, v in metrics.items()},
@@ -125,7 +146,9 @@ def step_case(state_dict, accum: int, remat: bool, rank: int, world: int,
         params={k: v.cpu().clone() for k, v in sd.items()})
 
 
-STEP_CASES = {"step/plain": (1, False), "step/accum_remat": (2, True)}
+# name: (GRAD_ACCUM_STEPS, MODEL.REMAT, MESH.MODEL)
+STEP_CASES = {"step/plain": (1, False, 1), "step/accum_remat": (2, True, 1),
+              "model2/step/plain": (1, False, 2)}
 
 
 def loss_inputs():
@@ -167,9 +190,17 @@ LOSS_CASES = ("ohem_above", "ohem_topk", "deeplab_topk", "deeplab_mean",
               "smoothness")
 
 
-def loss_case(name: str, rank: int, world: int):
+def loss_case(name: str, rank: int, world: int, copies: int = 1):
     """The loss ``name`` on this rank's part of loss_inputs(): its value
-    and the gradients of its differentiable inputs (this rank's part)."""
+    and the gradients of its differentiable inputs (this rank's part).
+    With ``copies`` > 1 the ranks form a model axis of that size, and
+    rank r holds data shard r // copies."""
+    if copies > 1:
+        set_model_axis(copies)
+        try:
+            return loss_case(name, rank // copies, world // copies)
+        finally:
+            set_model_axis(1)
     g = loss_inputs()
 
     def leaf(x):
@@ -225,11 +256,17 @@ ABN_CASES = {
 }
 
 
-def abn_case(name: str, rank: int, world: int):
+def abn_case(name: str, rank: int, world: int, copies: int = 1):
     """One training-mode ABN forward of this rank's part of a seeded input
     and the backward of a seeded upstream gradient: the output, the input
     gradient, this rank's share of the scale and bias gradients and the
-    running statistics after."""
+    running statistics after. With ``copies`` > 1 as in loss_case."""
+    if copies > 1:
+        set_model_axis(copies)
+        try:
+            return abn_case(name, rank // copies, world // copies)
+        finally:
+            set_model_axis(1)
     shape, fast = ABN_CASES[name]
     rng = np.random.RandomState(7)
     x = (rng.randn(*shape) * 2 + 0.5).astype(np.float32)
@@ -302,18 +339,43 @@ def checkpoint_case(state_dict, out: Path, rank: int):
         params={k: v.clone() for k, v in fresh.params.state_dict().items()})
 
 
+def model_axis_check() -> dict:
+    """What ``data_parallel_size`` makes of ``MESH.MODEL 2`` in this group:
+    the ValueError's message while the group's model axis is still 1
+    (``initialize_distributed``'s default), then (DATA, data_count,
+    data_index) once ``set_model_axis(2)`` has made it 2."""
+    cfg = step_config(1, False)
+    cfg.MESH.MODEL = 2
+    try:
+        data_parallel_size(cfg)
+        before = None
+    except ValueError as e:
+        before = str(e)
+    set_model_axis(2)
+    try:
+        after = (data_parallel_size(cfg), data_count(), data_index())
+    finally:
+        set_model_axis(1)
+    return {"before": before, "after": after}
+
+
 def run_all(state_dict, out: Path, rank: int, world: int, device="cpu"):
     if torch.device(device).type != "cpu":
         return {k: step_case(state_dict, *v, rank, world, device)
                 for k, v in STEP_CASES.items()}
     results = {f"loss/{n}": loss_case(n, rank, world) for n in LOSS_CASES}
+    results.update({f"model2/loss/{n}": loss_case(n, rank, world, 2)
+                    for n in LOSS_CASES})
     results.update({f"abn/{n}": abn_case(n, rank, world)
+                    for n in ABN_CASES})
+    results.update({f"model2/abn/{n}": abn_case(n, rank, world, 2)
                     for n in ABN_CASES})
     results.update({k: step_case(state_dict, *v, rank, world)
                     for k, v in STEP_CASES.items()})
     for k in (1, 2):
         results[f"loader/{k}"] = loader_batches(rank, world, k)
     results["checkpoint"] = checkpoint_case(state_dict, out, rank)
+    results["model_axis_check"] = model_axis_check()
     return results
 
 

@@ -9,7 +9,9 @@ the one-process references. Cases: every loss reduction, cross-replica
 ABN, the training step (plain at one sample per rank; with
 GRAD_ACCUM_STEPS 2 and MODEL.REMAT at two), the loader's per-process
 slices, rank-0-only checkpoints and their resume, and train_net with
-``--num-devices 2``.
+``--num-devices 2``; then the losses, ABN and the plain step again with
+the two ranks as copies of one data shard (MESH.DATA 1 x MESH.MODEL 2),
+held to the one process at the same bars.
 
 Bars. (i) Two ranks against the port's one rank: only the float order
 differs. Losses agree to 1e-5 relative; gradients by per-leaf cosine
@@ -79,6 +81,11 @@ from mgnet_tpu_torch.parallel import (  # noqa: E402
     local_positions,
     reduce_,
     shard_batch,
+)
+from mgnet_tpu_torch.parallel.multihost import (  # noqa: E402
+    data_count,
+    data_index,
+    model_axis_size,
 )
 from mgnet_tpu_torch.parallel.collectives import CALLS  # noqa: E402
 from mgnet_tpu_torch.train import (  # noqa: E402
@@ -218,7 +225,7 @@ def run(tmp_path_factory):
                 ref[f"loader/{k}"] = w.loader_batches(0, 1, k)
             # no group here: each rank's slice stepped alone, as a
             # per-rank DDP forward would
-            local = [w.step_case(state_dict, 1, False, r, w.WORLD)
+            local = [w.step_case(state_dict, 1, False, 1, r, w.WORLD)
                      for r in range(w.WORLD)]
         finally:
             torch.set_num_threads(threads)
@@ -461,10 +468,100 @@ def test_train_net_fails_when_a_rank_fails(run):
 
 
 def test_mesh_model_axis_raises():
+    """MESH.MODEL copies data shards over ranks: without a group (one
+    rank) a model axis of 2 has no second rank, and raises."""
     cfg = get_default_config()
     cfg.MESH.MODEL = 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="MESH.MODEL=2"):
         data_parallel_size(cfg)
+    assert (model_axis_size(), data_count(), data_index()) == (1, 1, 0)
+
+
+@pytest.mark.parametrize("case", w.LOSS_CASES)
+def test_model_axis_loss_equals_one_process(run, case):
+    """DATA 1 x MODEL 2: each rank holds the whole global batch, and its
+    loss and input gradients equal the one process's."""
+    want = run["ref"][f"loss/{case}"]
+    for g in run["got"]:
+        got = g[f"model2/loss/{case}"]
+        assert got["value"] == pytest.approx(want["value"], rel=1e-6,
+                                             abs=1e-7)
+        assert set(got["grads"]) == set(want["grads"])
+        for name, v in want["grads"].items():
+            np.testing.assert_allclose(
+                got["grads"][name].numpy(), v.numpy(), rtol=1e-5,
+                atol=1e-6 * float(v.abs().max()), err_msg=name)
+
+
+@pytest.mark.parametrize("case", list(w.ABN_CASES))
+def test_model_axis_abn_equals_one_process(run, case):
+    """DATA 1 x MODEL 2: ABN's output, gradients and running statistics
+    on each rank equal the one process's (the running variance's n/(n-1)
+    counts one copy of the batch)."""
+    want = run["ref"][f"abn/{case}"]
+    for g in run["got"]:
+        got = g[f"model2/abn/{case}"]
+        for k in ("out", "x_grad", "weight_grad", "bias_grad",
+                  "running_mean", "running_var"):
+            ref = np.asarray(want[k])
+            np.testing.assert_allclose(
+                np.asarray(got[k]), ref, rtol=1e-5,
+                atol=1e-6 * float(np.abs(ref).max()), err_msg=k)
+
+
+@pytest.mark.parametrize("aspect", ["losses", "gradients", "running_stats"])
+def test_model_axis_step_equals_one_rank(run, aspect):
+    """DATA 1 x MODEL 2: the plain training step of each rank (the whole
+    batch on both) equals the one rank's at bar (i), and the two ranks
+    hold the same parameters bit for bit."""
+    want = run["ref"]["model2/step/plain"]
+    for g in run["got"]:
+        got = g["model2/step/plain"]
+        if aspect == "losses":
+            _assert_losses(got["metrics"], want["metrics"], REL_I)
+        elif aspect == "gradients":
+            _assert_grads(got["grads"], want["grads"], COS_WORST_I,
+                          COS_MEDIAN_I)
+        else:
+            dist = _stats_dist(got["stats"], want["stats"])
+            assert max(dist.values()) < STATS_I, dist
+    a, b = (g["model2/step/plain"] for g in run["got"])
+    for k, v in a["params"].items():
+        assert torch.equal(v, b["params"][k]), k
+
+
+def test_data_parallel_size_holds_mesh_model_to_the_group_axis(run):
+    """In a group of two whose model axis is 1, MESH.MODEL 2 raises; once
+    the group's axis is 2, DATA is 1 and both ranks hold data shard 0."""
+    for g in run["got"]:
+        check = g["model_axis_check"]
+        assert "the group's model axis is 1" in check["before"], check
+        assert check["after"] == (1, 1, 0), check
+
+
+def test_model_axis_takes_the_hard_pixel_count_on_the_data_axis(run):
+    """The top-20% CE over copies: k must be MODEL x int(p n DATA) = 2 x
+    204, not int(p n DATA MODEL) = 409, or another set of pixels is
+    averaged. On the doubled pixels of the one process the right k gives
+    its loss and the other k does not; the ranks give the right one."""
+    from mgnet_tpu_torch.losses.segmentation import _per_pixel_ce, topk_sum
+
+    g = w.loss_inputs()
+    ce, _ = _per_pixel_ce(torch.from_numpy(g["logits"]),
+                          torch.from_numpy(g["labels"]), 255)
+    flat = (ce * torch.from_numpy(g["weights"])).reshape(-1)
+    n, p = flat.numel(), 0.2
+    right, wrong = 2 * int(p * n), int(p * n * 2)
+    assert right != wrong
+    doubled = torch.cat([flat, flat])
+    want = run["ref"]["loss/deeplab_topk"]["value"]
+    assert float(topk_sum(doubled, right) / right) == pytest.approx(
+        want, rel=1e-6)
+    naive = float(topk_sum(doubled, wrong) / wrong)
+    assert abs(naive - want) > 1e-5 * want, (naive, want)
+    for rank in run["got"]:
+        assert rank["model2/loss/deeplab_topk"]["value"] == pytest.approx(
+            want, rel=1e-6, abs=1e-7)
 
 
 def test_mesh_data_must_be_the_world_size():
@@ -503,3 +600,20 @@ def test_shard_batch_takes_each_ranks_share_of_each_micro_batch():
     assert local_positions(12, 2, 3, 2) == [4, 5, 10, 11]
     with pytest.raises(ValueError, match="does not divide"):
         local_positions(6, 0, 2, 2)
+
+
+def test_train_net_sets_the_data_axis_over_the_model_axis(tmp_path):
+    """--num-devices N with MESH.MODEL M: MESH.DATA becomes N / M (M must
+    divide N); M 1 keeps DATA the world size."""
+    from mgnet_tpu_torch.tools import train_net
+
+    def data_axis(*opts):
+        args = train_net.parse_args([
+            "--device", "cpu", "--num-devices", "4", "--eval-only",
+            "OUTPUT_DIR", str(tmp_path), *opts])
+        return train_net.setup(args).MESH.DATA
+
+    assert data_axis() == 4
+    assert data_axis("MESH.MODEL", "2") == 2
+    with pytest.raises(ValueError, match="MESH.MODEL=3"):
+        data_axis("MESH.MODEL", "3")

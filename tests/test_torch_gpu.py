@@ -631,12 +631,15 @@ def card_ranks(tmp_path_factory):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["step/plain", "step/accum_remat"])
+@pytest.mark.parametrize("case", ["step/plain", "step/accum_remat",
+                                  "model2/step/plain"])
 def test_two_gloo_ranks_on_one_card_equal_one_rank(card_ranks, case):
     """f32 on the card: the losses, the gradients (per-leaf cosine) and
     the BN running statistics (per tensor, against its largest magnitude)
-    of two gloo ranks at the global batch equal one rank's within bar
-    (iii), where the one rank is the step with the model's float64
+    of two gloo ranks at the global batch (split over them; in model2/
+    whole on each, as copies of one data shard: MESH.DATA 1 x MODEL 2)
+    equal one rank's within bar (iii), where the one rank is the step
+    with the model's float64
     reference on the CPU: the seeded model (the JAX package's init)
     amplifies float32 rounding, so the ranks are held to float64 rather
     than to another float32 run. Both ranks hold the same parameters bit
@@ -785,3 +788,66 @@ def test_gt_depth_ablation_descends_through_the_kernels(capsys):
     # printed at every 50 // 8 = 6th step and the last
     assert len(losses) == 10 and losses[-1] < losses[0]
     assert launches == [2 * 50 + 2, 2 * 50 + 2, 2 * 50], launches
+
+
+@pytest.mark.gpu
+def test_package_is_as_near_float64_as_the_eager_frame(card_package):
+    """The float32 package and the eager frame, each held to the frame of
+    a float64 copy of the model (ROADMAP Queue 3 item 2): at the float32
+    bars' tolerance, the package's labels and its share of each
+    continuous output within it lie no more than 0.01 below the eager
+    frame's."""
+    from mgnet_tpu_torch.export import BARS, float64_shares
+
+    frame, package, _, inputs = card_package
+    allow = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        found = float64_shares(
+            frame, {"eager": frame(*inputs), "package": package(*inputs)},
+            inputs, *BARS[torch.float32][1:3])
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = allow
+    print(f"against float64: {found}")
+    for group in ("agree", "within"):
+        for k, v in found["eager"][group].items():
+            assert found["package"][group][k] >= v - 0.01, (group, k)
+
+
+@pytest.mark.gpu
+def test_bench_train_launches_the_training_kernels():
+    """tools.bench_train at batch 2 of 256x256 on the card: each step
+    launches the warp 6 times, the SSIM forward 8 and its backward 6."""
+    _need_card()
+    from mgnet_tpu_torch.tools import bench_train
+
+    res = bench_train.main(["--batch", "2", "--size", "256", "--iters", "2"])
+    assert res["launches_per_step"] == {"warp_bilinear": 6.0,
+                                        "ssim_residual_fwd": 8.0,
+                                        "ssim_residual_bwd": 6.0}
+    assert res["device"] == "cuda" and res["peak_gib"] > 0
+
+
+@pytest.mark.gpu
+def test_smoke_pipeline_on_the_card(tmp_path):
+    """tools.run_pipeline --smoke --stages prepare,init,train,eval --device
+    cuda: PIPELINE OK, model_final and metrics.json."""
+    _need_card()
+    import os
+    import subprocess
+    import sys
+
+    argv = ["--smoke", "--device", "cuda", "--workers", "0",
+            "--data-root", str(tmp_path / "data"), "--output-dir",
+            str(tmp_path / "out"), "--weights-dir", str(tmp_path / "w")]
+    res = subprocess.run(
+        [sys.executable, "-m", "mgnet_tpu_torch.tools.run_pipeline", *argv],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+        capture_output=True, text=True, timeout=900)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    assert "PIPELINE OK" in res.stdout
+    assert (tmp_path / "out" / "model_final").is_dir()
+    assert (tmp_path / "out" / "metrics.json").is_file()

@@ -4,7 +4,8 @@ OpenCV, and where the JAX package is not to be used.
 
 A subprocess installs a ``sys.meta_path`` finder that refuses those
 modules and ``mgnet_tpu``, then imports every module of
-``mgnet_tpu_torch`` and ``chip_smoke``. ``chip_smoke.py`` must also refuse
+``mgnet_tpu_torch`` (the bench, profile and runbook tools among them),
+``chip_smoke`` and the port's card probes in ``tools/``. ``chip_smoke.py`` must also refuse
 to run without a card: non-zero exit and no result line.
 """
 
@@ -18,9 +19,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 REFUSED = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "PIL", "cv2",
            "mgnet_tpu")
+# the port's scripts under tools/, run as modules that are not __main__
+SCRIPTS = ("tools/probe_torch_bf16_export.py",
+           "tools/probe_torch_bf16_model_final.py")
 
 _CHILD = r"""
-import importlib, importlib.abc, pkgutil, sys
+import importlib, importlib.abc, pkgutil, runpy, sys
 REFUSED = set(sys.argv[1].split(","))
 
 class Refuse(importlib.abc.MetaPathFinder):
@@ -35,6 +39,9 @@ names = ["chip_smoke"] + [m.name for m in pkgutil.walk_packages(
     mgnet_tpu_torch.__path__, "mgnet_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+for path in sys.argv[2:]:
+    runpy.run_path(path, run_name="isolated")
+    names.append(path)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
 assert not leaked, leaked
 print("IMPORTED", len(names))
@@ -50,7 +57,7 @@ def _env(**extra):
 
 def test_port_imports_without_jax_and_host_packages():
     res = subprocess.run(
-        [sys.executable, "-c", _CHILD, ",".join(REFUSED)], cwd=ROOT,
+        [sys.executable, "-c", _CHILD, ",".join(REFUSED), *SCRIPTS], cwd=ROOT,
         env=_env(), capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     n = int(res.stdout.split("IMPORTED")[1])
